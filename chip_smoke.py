@@ -8,17 +8,29 @@ Phases, each fatal on failure:
 
 1. the card: name, nvidia-smi name and power limit; TF32 off for matmuls
    and cuDNN;
-2. build every CUDA kernel of the training path from ``csrc/`` (one nvcc per
-   source, started together) and hold each against its plain PyTorch version
-   on the card, forward and gradient, at the shapes the full-width training
-   step gives it and at an odd shape with no tile multiples;
-3. time each kernel at those shapes beside its bound, its plain version and
-   one PyTorch library call computing the same function;
-4. train: the port's trainer CLI at full default width (batch 256, 64×64×3,
+2. build every CUDA kernel of the port from ``csrc/`` (one nvcc per source,
+   started together) and hold each against its plain PyTorch version on the
+   card: ``fused_linear`` forward and gradient at the shapes the full-width
+   training step gives it and at an odd shape with no tile multiples;
+   ``per_image_normalize`` at the FID path's (1000, 64, 64, 3) in the
+   decoder's layout and contiguous, at an odd shape, on a constant image and
+   on an image holding a NaN;
+3. time each kernel at its main-path shapes beside its bound, its plain
+   version and, where one exists, one PyTorch library call computing the
+   same function;
+4. FID set-up: reference statistics of 2048 synthetic images through the
+   port's ``compute_dataset_statistics``; those images scored against their
+   own statistics (|FID| ≈ 0); pool3 on the card against pool3 on the CPU;
+5. train: the port's trainer CLI at full default width (batch 256, 64×64×3,
    n_hidden 128, bf16), synthetic data, 4 steps in freeze mode 'observed'
-   and 2 in 'intent', with every loss finite and the kernel launch counts
-   equal to launches per step × steps;
-5. print the ``kernels`` JSON line, the card line and, last, the ok line.
+   with FID over 1000 decoded samples (and their PNG files), then 2 steps in
+   'intent' without FID; every loss and the FID finite, and each kernel's
+   launch count, set to 0 just before each run and read just after, equal
+   to what the run's code path launches;
+6. the FID phase once more, timed part by part (decode, normalize, pool3,
+   Fréchet, PNG writes), with the decoder's BatchNorm running statistics
+   checked unchanged by the sampling decode;
+7. print the ``kernels`` JSON line, the card line and, last, the ok line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 package is missing.
@@ -26,6 +38,7 @@ package is missing.
 
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -38,10 +51,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, ".verify_runs", "chip_smoke")
 BATCH = 256
 
-# Peak rates of an H100 SXM (NVIDIA data sheet, dense): bytes/s of HBM3 and
-# bf16 tensor-core FLOP/s. bound = max(bytes / BW, flops / PEAK).
+# Peak rates of an H100 SXM (NVIDIA data sheet, dense): bytes/s of HBM3,
+# bf16 tensor-core FLOP/s and float32 FLOP/s.
+# bound = max(bytes / BW, flops / PEAK).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 
 # fused_linear calls of one full-width β-VAE-GAN step (train/vaegan.py):
 # (role, M, K, N, activation, x dtype name, calls per step). K=16384 is the
@@ -62,6 +77,28 @@ LAUNCHES_PER_STEP = sum(s[-1] for s in FUSED_LINEAR_SHAPES)
 # float32 products rounded to bf16 (plain path): two bf16 roundings.
 TOL_FWD = {"float32": 1e-4, "bfloat16": 8e-3}
 TOL_GRAD = 2e-2
+
+# per_image_normalize on the FID path: the decoder's N_SAMPLES images, NHWC,
+# launched twice per FID epoch (Inception input, uint8 sample files).
+N_SAMPLES = 1000
+NORM_SHAPE = (N_SAMPLES, 64, 64, 3)
+NORM_LAUNCHES_PER_EPOCH = 2
+# the FID decode's one extra fused_linear launch: preprocess, 1000×128→16384
+FID_FUSED_LINEAR_LAUNCHES = 1
+# Both sides compute (x − lo)·(1/range) in float32 from the same min and
+# max, and the outputs lie in [0, 1].
+TOL_NORM = 1e-6
+# FID statistics of this many synthetic images, and the self-FID of those
+# images against them. With equal activations only float64 rounding of the
+# eigen math remains; its largest share is the square roots of the
+# rounding-level eigenvalues of Σ's null space (rank ≤ n − 1), each about
+# 1e-8 of the largest. A broken pipeline gives a self-FID of the order of
+# tr(Σ).
+STATS_IMAGES = 2048
+TOL_SELF_FID = 1e-4
+# pool3 on the card (float32, TF32 off) against pool3 on the CPU: the CPU
+# parity tolerance against the JAX package (tests/test_torch_port_inception.py)
+TOL_POOL3 = {"rtol": 2e-3, "atol": 2e-4}
 
 
 def fail(msg: str) -> None:
@@ -241,9 +278,150 @@ def time_fused_linear(fl, torch) -> list:
     return rows
 
 
-def train(fl, mode: str, size: int, card: str) -> int:
-    """Full-width training through the trainer CLI; returns the kernel
-    launches it made."""
+def check_per_image_normalize(pin, torch) -> float:
+    """The kernel against per_image_normalize_plain: output dtype, shape,
+    strides, NaN positions and values; returns the largest error."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = 0.0
+
+    def images(n, h, w, c, dtype, nchw):
+        """Values in (-1, 1) like the decoder's tanh; with ``nchw`` the
+        NHWC view of a contiguous NCHW tensor, as the decoder returns."""
+        shape = (n, c, h, w) if nchw else (n, h, w, c)
+        x = torch.tanh(2.0 * torch.randn(shape, device=dev, generator=gen))
+        x = x.to(dtype)
+        return x.permute(0, 2, 3, 1) if nchw else x
+
+    def check(label, x):
+        nonlocal worst
+        got = pin.per_image_normalize(x)
+        want = pin.per_image_normalize_plain(x)
+        torch.cuda.synchronize()
+        if (got.dtype != torch.float32 or got.shape != x.shape
+                or got.stride() != x.stride()):
+            fail(f"per_image_normalize {label}: {got.dtype} "
+                 f"{tuple(got.shape)} strides {got.stride()}, want float32 "
+                 f"{tuple(x.shape)} strides {x.stride()}")
+        nan = torch.isnan(want)
+        if not torch.equal(torch.isnan(got), nan):
+            fail(f"per_image_normalize {label}: NaN positions differ from "
+                 f"the plain version")
+        err = (got - want).abs()[~nan].max().item() if bool((~nan).any()) \
+            else 0.0
+        say(f"[check] per_image_normalize {label}: max abs err {err:.3e} "
+            f"(tol {TOL_NORM:.0e})")
+        if not err <= TOL_NORM:
+            fail(f"per_image_normalize {label}: max abs err {err:.3e} > "
+                 f"{TOL_NORM:.0e}")
+        worst = max(worst, err)
+        return got
+
+    n, h, w, c = NORM_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for nchw in (True, False):
+            layout = "NHWC view of NCHW" if nchw else "contiguous NHWC"
+            check(f"{NORM_SHAPE} {name} {layout}",
+                  images(n, h, w, c, dtype, nchw))
+            check(f"odd (3, 5, 7, 3) {name} {layout}",
+                  images(3, 5, 7, 3, dtype, nchw))
+        # 786 KB a float32 image: above the shared-memory stage, read twice
+        check(f"large (2, 256, 256, 3) {name}",
+              images(2, 256, 256, 3, dtype, False))
+    x = images(4, h, w, c, torch.float32, False)
+    x[1] = 0.25
+    y = check("constant image 1 of 4", x)
+    if not bool((y[1] == 0).all()):
+        fail("per_image_normalize: a constant image must map to 0")
+    x = images(4, h, w, c, torch.bfloat16, True)
+    x[2, 10, 20, 1] = float("nan")
+    y = check("one NaN in image 2 of 4", x)
+    if not (bool(torch.isnan(y[2]).all())
+            and bool(torch.isfinite(y[[0, 1, 3]]).all())):
+        fail("per_image_normalize: the NaN image must come out all NaN and "
+             "the others finite")
+    return worst
+
+
+def time_per_image_normalize(pin, torch) -> dict:
+    """Kernel and plain times at the FID path's input: the decoder's bf16
+    NHWC view of NCHW. No single PyTorch call computes this function, so
+    there is no library time."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, h, w, c = NORM_SHAPE
+    x = torch.tanh(torch.randn((n, c, h, w), device=dev, generator=gen))
+    x = x.bfloat16().permute(0, 2, 3, 1)
+    kernel_ms = time_ms(lambda: pin.per_image_normalize(x))
+    plain_ms = time_ms(lambda: pin.per_image_normalize_plain(x))
+    nbytes = x.numel() * (x.element_size() + 4)  # bf16 in, float32 out
+    flops = 4 * x.numel()  # min, max, subtract, multiply
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    row = {"shape": list(NORM_SHAPE), "x_dtype": "bfloat16",
+           "layout": "NHWC view of NCHW", "bytes": nbytes, "flops": flops,
+           "ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    say(f"[time] per_image_normalize {NORM_SHAPE} bf16: kernel "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); no library call")
+    return row
+
+
+def fid_setup(torch) -> str:
+    """Reference statistics of STATS_IMAGES synthetic images through the
+    port's compute_dataset_statistics; the same images against them give
+    |FID| ≈ 0; pool3 on the card agrees with the CPU. Returns the .npz."""
+    import numpy as np
+
+    from disentangle_mlp_tpu_torch.data.pipeline import (DataLoader,
+                                                         SyntheticSource)
+    from disentangle_mlp_tpu_torch.eval import fid
+    from disentangle_mlp_tpu_torch.eval.inception import (get_params_cached,
+                                                          pool3_features)
+    from disentangle_mlp_tpu_torch.utils.params import inception_from_jax
+
+    os.makedirs(RUN_DIR, exist_ok=True)
+    path = os.path.join(RUN_DIR, "fid_stats.npz")
+    loader = DataLoader(SyntheticSource(size=STATS_IMAGES, seed=0), BATCH,
+                        shuffle=False, device="cuda")
+    t0 = time.perf_counter()
+    mu, sigma = fid.compute_dataset_statistics(loader, path,
+                                               max_images=STATS_IMAGES)
+    t_stats = time.perf_counter() - t0
+    acts = np.concatenate([fid.get_activations((x + 1.0) / 2.0)
+                           for x, _ in loader])
+    self_fid = fid.frechet_from_acts(
+        acts, mu, sigma, sqrt_sigma2=fid.cached_sqrt_sigma2(path, sigma))
+    tr = float(np.trace(sigma))
+    if not (acts.shape == (STATS_IMAGES, fid.FEATURE_DIM)
+            and np.isfinite(acts).all() and math.isfinite(self_fid)):
+        fail(f"fid: activations {acts.shape} or self-FID {self_fid} not "
+             f"finite and of the expected shape")
+    if abs(self_fid) > TOL_SELF_FID * tr:
+        fail(f"fid: self-FID {self_fid:.3e} exceeds {TOL_SELF_FID:.0e} x "
+             f"tr(sigma) {tr:.3e}")
+    x01 = (next(iter(loader))[0][:2] + 1.0) / 2.0
+    card = fid.get_activations(x01)
+    cpu = pool3_features(inception_from_jax(get_params_cached()[0]),
+                         x01.cpu()).numpy()
+    err = np.abs(card - cpu)
+    if not (err <= TOL_POOL3["atol"] + TOL_POOL3["rtol"] * np.abs(cpu)).all():
+        fail(f"fid: pool3 on the card differs from the CPU by up to "
+             f"{err.max():.3e} (tol {TOL_POOL3})")
+    say(f"[fid] stats of {STATS_IMAGES} synthetic images in {t_stats:.2f} s "
+        f"(pretrained Inception: {fid.inception_is_pretrained()}); self-FID "
+        f"{self_fid:.3e} vs tr(sigma) {tr:.3e} (tol {TOL_SELF_FID:.0e} x "
+        f"tr); pool3 card vs CPU, 2 images: max abs err {err.max():.3e}")
+    return path
+
+
+def train(fl, pin, mode: str, size: int, card: str,
+          stats_path: str = "") -> dict:
+    """Full-width training through the trainer CLI, with FID over
+    N_SAMPLES decoded samples when ``stats_path`` is given; returns the
+    kernel launches it made."""
     from disentangle_mlp_tpu_torch.cli.train import main as train_main
     import torch
 
@@ -252,30 +430,107 @@ def train(fl, mode: str, size: int, card: str) -> int:
             "--device", "cuda", "--epochs", "1",
             "--batch_size_train", str(BATCH), "--dtype", "bfloat16",
             "--synthetic_data", "True", "--synthetic_train_size", str(size),
-            "--calc_fid", "False", "--checkpoint_every", "0",
-            "--freeze_mode", mode,
+            "--checkpoint_every", "0", "--freeze_mode", mode,
             "--save_path", os.path.join(RUN_DIR, "%"),
             "--log_path", os.path.join(RUN_DIR, "%", "log")]
-    fl.launches = 0
+    if stats_path:
+        argv += ["--calc_fid", "True", "--n_samples", str(N_SAMPLES),
+                 "--fid_save_samples", "True",
+                 "--fid_path_pretrained", stats_path]
+    else:
+        argv += ["--calc_fid", "False"]
+    fl.launches = pin.launches = 0
     t0 = time.perf_counter()
     out = train_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fl.launches
+    launches = {"fused_linear": fl.launches,
+                "per_image_normalize": pin.launches}
+    want = {"fused_linear": LAUNCHES_PER_STEP * steps
+            + (FID_FUSED_LINEAR_LAUNCHES if stats_path else 0),
+            "per_image_normalize": NORM_LAUNCHES_PER_EPOCH if stats_path
+            else 0}
     metrics = out["step_metrics"]
     values = [out["Avg Eec Loss"], out["Avg Dis Loss"], *metrics.values()]
     if not all(math.isfinite(v) for v in values):
         fail(f"train {mode}: non-finite loss {out}")
-    if launches != LAUNCHES_PER_STEP * steps:
-        fail(f"train {mode}: fused_linear launched {launches} times, "
-             f"expected {LAUNCHES_PER_STEP} x {steps} steps")
+    if launches != want:
+        fail(f"train {mode}: kernel launches {launches}, expected {want} "
+             f"({LAUNCHES_PER_STEP} fused_linear per step x {steps} steps"
+             f"{', plus the FID epoch' if stats_path else ''})")
+    fid_note = "no FID"
+    if stats_path:
+        fid = out["FID"]
+        if not (isinstance(fid, float) and math.isfinite(fid)):
+            fail(f"train {mode}: FID {fid!r} is not a finite float")
+        pngs = glob.glob(os.path.join(RUN_DIR, f"smoke_{mode}", "fid_results",
+                                      "recons", "sample_*_0.png"))
+        if len(pngs) != N_SAMPLES:
+            fail(f"train {mode}: {len(pngs)} sample PNGs, expected "
+                 f"{N_SAMPLES}")
+        fid_note = (f"FID {fid:.4f} over {N_SAMPLES} samples, "
+                    f"{len(pngs)} sample PNGs")
     rate = out["images_per_sec"]
     say(f"[train] {mode}: {steps} steps at batch {BATCH}, bf16, full "
         f"width; {rate:.1f} img/s, {BATCH / rate * 1e3:.2f} ms/step "
-        f"(steps 2..{steps}); wall {wall:.1f} s incl. init; fused_linear "
-        f"launches {launches} = {LAUNCHES_PER_STEP} x {steps}; last step "
+        f"(steps 2..{steps}, FID excluded); wall {wall:.1f} s incl. init; "
+        f"{fid_note}; launches {json.dumps(launches)}; last step "
         f"{json.dumps(metrics)}; card {card}")
     return launches
+
+
+def fid_split(stats_path: str, card: str) -> dict:
+    """The per-epoch FID phase once more, each part timed on its own
+    (host clock around work ended by a synchronize), and the decoder's
+    BatchNorm running statistics checked unchanged by the sampling
+    decode."""
+    import torch
+
+    from disentangle_mlp_tpu_torch.config import Config
+    from disentangle_mlp_tpu_torch.eval import fid
+    from disentangle_mlp_tpu_torch.eval.samples import (_sample_latents,
+                                                        write_sample_files)
+    from disentangle_mlp_tpu_torch.models.layers import BatchNorm
+    from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
+
+    cfg = Config(name="smoke_fid")  # full default width, bf16
+    exp = VAEGANExperiment(cfg, "cuda")
+    bns = [m for m in exp.vae.decoder.modules() if isinstance(m, BatchNorm)]
+    before = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    mu2, s2 = fid.load_stats_npz(stats_path)
+    out_dir = os.path.join(RUN_DIR, "fid_split")
+    os.makedirs(out_dir, exist_ok=True)
+    ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    z = _sample_latents(cfg.seed, N_SAMPLES, cfg.n_hidden, "cuda")
+    out = timed("decode", lambda: exp.decode(z))
+    if not all(torch.equal(m.running_mean, a) and torch.equal(m.running_var, b)
+               for m, (a, b) in zip(bns, before)):
+        fail("fid: the sampling decode changed the decoder's BatchNorm "
+             "running statistics")
+    if out.shape != NORM_SHAPE or out.dtype != torch.bfloat16:
+        fail(f"fid: decode gave {out.dtype} {tuple(out.shape)}")
+    imgs = timed("normalize", lambda: fid.per_image_normalize(out))
+    acts = timed("pool3", lambda: fid.get_activations(imgs))
+    u8 = timed("quantize_and_pull",
+               lambda: fid.normalized_u8(out).cpu().numpy())
+    score = timed("frechet", lambda: fid.frechet_from_acts(acts, mu2, s2))
+    timed("png_writes", lambda: write_sample_files(u8, 0, out_dir))
+    if not math.isfinite(score):
+        fail(f"fid: score {score} is not finite")
+    ms["total"] = sum(ms.values())
+    say(f"[fid] phase split over {N_SAMPLES} samples, ms (BatchNorm running "
+        f"statistics unchanged; FID {score:.4f}; card {card}): "
+        f"{json.dumps(ms)}")
+    return ms
 
 
 def main() -> None:
@@ -290,6 +545,7 @@ def main() -> None:
     try:
         from disentangle_mlp_tpu_torch.ops import _build
         from disentangle_mlp_tpu_torch.ops import fused_linear as fl
+        from disentangle_mlp_tpu_torch.ops import image_ops as pin
     except ImportError as e:
         fail(f"the port's package is not importable from {REPO}: {e}")
 
@@ -303,23 +559,30 @@ def main() -> None:
 
     # 2. build and check
     t0 = time.perf_counter()
-    libs = _build.build_all(["fused_linear"])
+    libs = _build.build_all(["fused_linear", "per_image_normalize"])
     say(f"[build] {', '.join(str(p.name) for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
     worst = check_fused_linear(fl, torch)
+    norm_err = check_per_image_normalize(pin, torch)
 
     # 3. time
     rows = time_fused_linear(fl, torch)
+    norm_row = time_per_image_normalize(pin, torch)
 
-    # 4. train
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     try:
-        launches = (train(fl, "observed", 4 * BATCH, card)
-                    + train(fl, "intent", 2 * BATCH, card))
+        # 4. FID set-up
+        stats_path = fid_setup(torch)
+        # 5. train: observed with FID, intent without
+        runs = [train(fl, pin, "observed", 4 * BATCH, card, stats_path),
+                train(fl, pin, "intent", 2 * BATCH, card)]
+        launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+        # 6. the FID phase, part by part
+        fid_split(stats_path, card)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
 
-    # 5. report
+    # 7. report
     def per_step(key):
         return sum(r[key] * r["launches_per_step"] for r in rows)
 
@@ -331,7 +594,8 @@ def main() -> None:
         "name": "fused_linear", "route": "cuda",
         "source": "disentangle_mlp_tpu_torch/csrc/fused_linear.cu",
         "replaces": "disentangle_mlp_tpu/ops/pallas/matmul_fused.py:71",
-        "launches": launches, "max_abs_err": worst["max_abs_err"],
+        "launches": launches["fused_linear"],
+        "max_abs_err": worst["max_abs_err"],
         "max_rel_err": worst["max_rel_err"],
         "grad_rel_err": worst["grad_rel_err"],
         "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
@@ -341,6 +605,21 @@ def main() -> None:
         "times_are": f"sums over the {LAUNCHES_PER_STEP} launches of one "
                      f"training step",
         "shapes": rows,
+    }, {
+        "name": "per_image_normalize", "route": "cuda",
+        "source": "disentangle_mlp_tpu_torch/csrc/per_image_normalize.cu",
+        "replaces": "disentangle_mlp_tpu/ops/pallas/image_ops.py:36",
+        "launches": launches["per_image_normalize"],
+        "max_abs_err": norm_err,
+        "ms": norm_row["ms"], "plain_ms": norm_row["plain_ms"],
+        "bound_ms": norm_row["bound_ms"], "bound_by": norm_row["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a per-image min-max "
+                        "rescale",
+        "times_are": f"per call at {NORM_SHAPE} bf16 in the decoder's NHWC "
+                     f"view of NCHW; {NORM_LAUNCHES_PER_EPOCH} launches per "
+                     f"FID epoch",
+        "shapes": [norm_row],
     }]
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -37,6 +37,7 @@ import torch
 
 from ..config import Config
 from ..models.gan import DiscriminatorCeleba
+from ..models.layers import BatchNorm
 from ..models.vae import VAE
 from ..ops.losses import bce_logits, kld, reconstruction_loss, sim_loss
 from .common import Adam, sample_labels
@@ -173,6 +174,27 @@ class VAEGANExperiment:
         r = r_loss.detach()
         return {"recon_enc": r, "recon_dec": r, "dis": d_x, "D_x": d_x,
                 "kld": k_loss.detach(), "sim": s_loss.detach()}
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Sample images (NHWC, compute dtype) from latents ``z``, as the
+        JAX package's ``decode``: BatchNorm in train mode, normalizing with
+        the statistics of this whole batch of latents, and those statistics
+        discarded. The port's BatchNorm updates its running statistics in
+        place in train mode, so they are saved and put back: sampling
+        leaves the state a checkpoint saves untouched."""
+        bns = [m for m in self.vae.decoder.modules()
+               if isinstance(m, BatchNorm)]
+        saved = [(m.running_mean.clone(), m.running_var.clone())
+                 for m in bns]
+        try:
+            with torch.no_grad():
+                return self.vae.decode(
+                    torch.as_tensor(z, dtype=torch.float32,
+                                    device=self.device), train=True)
+        finally:
+            for m, (mean, var) in zip(bns, saved):
+                m.running_mean.copy_(mean)
+                m.running_var.copy_(var)
 
     def optimizer_state(self) -> Dict:
         eg = ({k: v.state_dict() for k, v in self.opt_eg.items()}

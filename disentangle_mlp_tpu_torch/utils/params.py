@@ -17,6 +17,11 @@ layout follows the submodule's type:
 
 Trees are nested dicts of numpy arrays on both sides (``to_numpy_tree`` turns
 a flax tree of device arrays into one).
+
+The FID InceptionV3 (eval/inception.py) has no flax module: its tree is
+``{name: {"kernel": HWIO, "bias"}}`` (Mixed blocks one level deeper), and
+:func:`inception_from_jax` / :func:`inception_to_jax` move it into a new
+``InceptionV3`` (OIHW weights) and back.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..eval.inception import FoldedConv, InceptionV3
 from ..models.layers import BatchNorm, Conv, ConvTranspose, Linear
 
 Tree = Dict[str, Any]
@@ -41,7 +47,7 @@ def to_numpy_tree(tree) -> Tree:
 
 
 def _kernel_to_torch(module: nn.Module, kernel: np.ndarray) -> np.ndarray:
-    if isinstance(module, Conv):
+    if isinstance(module, (Conv, FoldedConv)):
         return kernel.transpose(3, 2, 0, 1)
     if isinstance(module, ConvTranspose):
         return kernel[::-1, ::-1].transpose(2, 3, 0, 1)
@@ -51,7 +57,7 @@ def _kernel_to_torch(module: nn.Module, kernel: np.ndarray) -> np.ndarray:
 
 
 def _kernel_to_jax(module: nn.Module, weight: np.ndarray) -> np.ndarray:
-    if isinstance(module, Conv):
+    if isinstance(module, (Conv, FoldedConv)):
         return weight.transpose(2, 3, 1, 0)
     if isinstance(module, ConvTranspose):
         return weight.transpose(2, 3, 0, 1)[::-1, ::-1]
@@ -114,7 +120,7 @@ def to_jax(module: nn.Module) -> Tuple[Tree, Tree]:
             return ({"bn": {"scale": arr(mod.weight), "bias": arr(mod.bias)}},
                     {"bn": {"mean": arr(mod.running_mean),
                             "var": arr(mod.running_var)}})
-        if isinstance(mod, (Conv, ConvTranspose, Linear)):
+        if isinstance(mod, (Conv, ConvTranspose, Linear, FoldedConv)):
             kernel = _kernel_to_jax(mod, arr(mod.weight))
             return ({"kernel": np.ascontiguousarray(kernel),
                      "bias": arr(mod.bias)}, {})
@@ -127,3 +133,16 @@ def to_jax(module: nn.Module) -> Tuple[Tree, Tree]:
         return params, stats
 
     return walk(module)
+
+
+def inception_from_jax(params: Tree) -> InceptionV3:
+    """A new float32 :class:`InceptionV3` on the CPU holding the Inception
+    params tree (HWIO kernels → OIHW weights)."""
+    model = InceptionV3()
+    from_jax(model, params)
+    return model.eval()
+
+
+def inception_to_jax(model: InceptionV3) -> Tree:
+    """The inverse of :func:`inception_from_jax`: the params tree."""
+    return to_jax(model)[0]
