@@ -9,15 +9,19 @@ Phases, each fatal on failure:
 1. the card: name, nvidia-smi name and power limit; TF32 off for matmuls
    and cuDNN;
 2. build every CUDA kernel of the port from ``csrc/`` (one nvcc per source,
-   started together) and hold each against its plain PyTorch version on the
-   card: ``fused_linear`` forward and gradient at the shapes the full-width
-   training step gives it and at an odd shape with no tile multiples;
+   started together; ptxas's registers and spills per kernel) and hold each
+   against its plain PyTorch version on the card: ``fused_linear`` forward
+   (with the path and split count its plan chose, and two launches
+   bit-identical) and gradient at the shapes the full-width training step
+   gives it, forward at the FID decode's and at shapes on each path's
+   edges, and at an odd shape with no tile multiples;
    ``per_image_normalize`` at the FID path's (1000, 64, 64, 3) in the
    decoder's layout and contiguous, at an odd shape, on a constant image and
    on an image holding a NaN;
 3. time each kernel at its main-path shapes beside its bound, its plain
    version and, where one exists, one PyTorch library call computing the
-   same function;
+   same function (for ``fused_linear`` two: ``torch.addmm`` on bf16 copies
+   made beforehand, and with the casts from the port's float32 weight);
 4. FID set-up: reference statistics of 2048 synthetic images through the
    port's ``compute_dataset_statistics``; those images scored against their
    own statistics (|FID| ≈ 0); pool3 on the card against pool3 on the CPU;
@@ -26,7 +30,7 @@ Phases, each fatal on failure:
    with FID over 1000 decoded samples (and their PNG files), then 2 steps in
    'intent' without FID; every loss and the FID finite, and each kernel's
    launch count, set to 0 just before each run and read just after, equal
-   to what the run's code path launches;
+   to what the run's code path launches (fused_linear's also by path);
 6. the FID phase once more, timed part by part (decode, normalize, pool3,
    Fréchet, PNG writes), with the decoder's BatchNorm running statistics
    checked unchanged by the sampling decode;
@@ -69,6 +73,25 @@ FUSED_LINEAR_SHAPES = [
     ("sigmoid_output", BATCH, 2048, 1, "none", "float32", 5),
 ]
 LAUNCHES_PER_STEP = sum(s[-1] for s in FUSED_LINEAR_SHAPES)
+# the FID decode's one call per epoch: preprocess, 1000 latents
+FID_DECODE_SHAPE = ("fid_decode/preprocess", 1000, 128, 16384, "none",
+                    "bfloat16", 0)
+# Shapes at the edges of fused_linear's paths (csrc/fused_linear.cu): batch
+# rows around the stream path's 256-row tile, output features around its
+# 128-row tile and the dot path's N < 64, and K = 2056 (33 slices of 64, the
+# last with only its lower 32-float half in range; not a multiple of the 4,
+# 8 or 16 splits these shapes get) or K = 24 (one half slice).
+# (label, M, K, N, activation, x dtype name)
+FUSED_LINEAR_EDGES = [
+    ("M=1", 1, 16384, 2048, "none", "bfloat16"),
+    ("M=255", 255, 2056, 2048, "relu", "bfloat16"),
+    ("M=257", 257, 2056, 2048, "none", "bfloat16"),
+    ("N=65", 256, 2056, 65, "leaky_relu", "bfloat16"),
+    ("N=64", 256, 2056, 64, "none", "bfloat16"),
+    ("N=63", 256, 2056, 63, "none", "bfloat16"),
+    ("N=1", 256, 2056, 1, "none", "bfloat16"),
+    ("K=24", 256, 24, 2048, "none", "bfloat16"),
+]
 
 # Tolerances, as a share of the plain output's largest magnitude. Both sides
 # multiply the same bf16-rounded operands in float32; only the summation
@@ -154,9 +177,20 @@ def check_fused_linear(fl, torch) -> dict:
         b = torch.randn(n, device=dev, generator=gen) * 0.1
         return x, w, b
 
-    def fwd(label, x, w_kn, b, act, out):
+    def fwd(label, x, w_kn, b, act, out, identity=False):
+        """One launch against the plain version; with ``identity`` a second
+        launch on the same inputs must give the same bits."""
+        p = fl.plan_for(x, w_kn)
         got = fl.fused_linear(x, w_kn, b, act, out)
         want = fl.fused_linear_plain(x, w_kn, b, act, out)
+        same = ""
+        if identity:
+            again = fl.fused_linear(x, w_kn, b, act, out)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"fused_linear {label} act={act} out={out}: two launches "
+                     f"on the same inputs differ")
+            same = ", two launches bit-identical"
         torch.cuda.synchronize()
         if got.dtype != want.dtype or got.shape != want.shape:
             fail(f"fused_linear {label}: {got.dtype}{tuple(got.shape)} vs "
@@ -165,8 +199,9 @@ def check_fused_linear(fl, torch) -> dict:
             fail(f"fused_linear {label}: non-finite output")
         a, r = rel_err(got, want)
         tol = TOL_FWD[str(out).replace("torch.", "")]
-        say(f"[check] fused_linear {label} act={act} out={out}: max abs err "
-            f"{a:.3e}, rel {r:.3e} (tol {tol:.0e})")
+        say(f"[check] fused_linear {label} act={act} out={out} path={p.path} "
+            f"splits={p.splits}: max abs err {a:.3e}, rel {r:.3e} (tol "
+            f"{tol:.0e}){same}")
         if r > tol:
             fail(f"fused_linear {label} act={act} out={out}: rel err {r:.3e} "
                  f"> {tol:.0e}")
@@ -222,25 +257,56 @@ def check_fused_linear(fl, torch) -> dict:
             fwd("odd 100x300x70 (K,N) weight", x, w.t().contiguous(), b,
                 act, out)
         grad("odd 100x300x70", x, w, b, act, torch.float32)
-    # the training step's shapes, as the step calls them: a float32 (N, K)
-    # weight read through its transpose, bf16 output
-    for role, m, k, n, act, xdt, _ in FUSED_LINEAR_SHAPES:
+    # the training step's shapes and the FID decode's, as the port calls
+    # them: a float32 (N, K) weight read through its transpose
+    for role, m, k, n, act, xdt, per_step in (FUSED_LINEAR_SHAPES
+                                              + [FID_DECODE_SHAPE]):
         x, w, b = inputs(m, k, n, getattr(torch, xdt))
         label = f"{role} {m}x{k}x{n}"
         for out in (torch.bfloat16, torch.float32):
-            fwd(label, x, w.t(), b, act, out)
-        grad(label, x, w, b, act, torch.bfloat16)
+            fwd(label, x, w.t(), b, act, out, identity=True)
+        if per_step:  # the decode runs without gradients
+            grad(label, x, w, b, act, torch.bfloat16)
+        del x, w, b
+    for label, m, k, n, act, xdt in FUSED_LINEAR_EDGES:
+        x, w, b = inputs(m, k, n, getattr(torch, xdt))
+        for out in (torch.bfloat16, torch.float32):
+            fwd(f"edge {label} {m}x{k}x{n}", x, w.t(), b, act, out)
         del x, w, b
     return worst
 
 
-def time_fused_linear(fl, torch) -> list:
-    """kernel, plain and library (torch.addmm on bf16 copies, then the
-    activation) times at each main-path shape, with the bound."""
+def time_device_ms(fn, iters: int = 20) -> float:
+    """Device time per call: a spin kernel holds the card until all the
+    calls are queued, so the host's time per call does not show."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(50_000_000)  # tens of ms at the card's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_fused_linear(fl, torch, card: str) -> list:
+    """At each main-path shape and the FID decode's: the kernel, the plain
+    version, the library (torch.addmm on bf16 copies made beforehand, then
+    the activation) and the library with the casts it needs from the port's
+    float32 weight (and float32 x), timed in turns; the kernel's and the
+    library's device time alone; the bound and the achieved bytes/s. At
+    K = 128 the generic path is timed too: the plan sends those shapes to
+    the faster path."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for role, m, k, n, act, xdt, per_step in FUSED_LINEAR_SHAPES:
+    for role, m, k, n, act, xdt, per_step in (FUSED_LINEAR_SHAPES
+                                              + [FID_DECODE_SHAPE]):
         x = torch.randn(m, k, device=dev, generator=gen).to(getattr(torch,
                                                                    xdt))
         w = torch.randn(n, k, device=dev, generator=gen) * k ** -0.5
@@ -248,16 +314,31 @@ def time_fused_linear(fl, torch) -> list:
         w_kn, out = w.t(), torch.bfloat16
         x16, w16, b16 = x.bfloat16(), w_kn.bfloat16(), b.bfloat16()
 
-        def library():
-            y = torch.addmm(b16, x16, w16)
+        def activate(y):
             if act == "leaky_relu":
                 y = torch.nn.functional.leaky_relu(y, 0.2)
             return y
 
-        kernel_ms = time_ms(lambda: fl.fused_linear(x, w_kn, b, act, out))
-        plain_ms = time_ms(lambda: fl.fused_linear_plain(x, w_kn, b, act,
-                                                         out))
-        library_ms = time_ms(library)
+        fns = {
+            "kernel": lambda: fl.fused_linear(x, w_kn, b, act, out),
+            "library": lambda: activate(torch.addmm(b16, x16, w16)),
+            "library_cast": lambda: activate(torch.addmm(
+                b16, x.to(torch.bfloat16), w_kn.to(torch.bfloat16))),
+            "plain": lambda: fl.fused_linear_plain(x, w_kn, b, act, out),
+        }
+        order = ["kernel", "library", "library_cast", "plain"]
+        times = {key: [] for key in order}
+        for key in order + order[::-1]:
+            times[key].append(time_ms(fns[key]))
+        ms = {key: sum(v) / len(v) for key, v in times.items()}
+        device_ms = time_device_ms(fns["kernel"])
+        library_device_ms = time_device_ms(fns["library"])
+        p = fl.plan_for(x, w_kn)
+        generic_ms = None
+        if k == 128:
+            generic = fl.Plan("generic", 1, 0)
+            generic_ms = time_ms(lambda: fl._launch(x, w_kn, b, act, out,
+                                                    force=generic))
         nbytes = (x.numel() * x.element_size() + w.numel() * 4
                   + b.numel() * 4 + m * n * 2)
         flops = 2 * m * n * k
@@ -265,17 +346,51 @@ def time_fused_linear(fl, torch) -> list:
         rows.append({
             "role": role, "M": m, "K": k, "N": n, "activation": act,
             "x_dtype": xdt, "w_dtype": "float32", "out_dtype": "bfloat16",
+            "path": p.path, "splits": p.splits,
+            "workspace_bytes": p.workspace_bytes,
             "launches_per_step": per_step, "bytes": nbytes, "flops": flops,
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"],
+            "library_cast_ms": ms["library_cast"],
+            "device_ms": device_ms, "library_device_ms": library_device_ms,
+            "generic_path_ms": generic_ms,
+            "achieved_bytes_per_s": nbytes / (ms["kernel"] * 1e-3),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         })
-        say(f"[time] fused_linear {role} {m}x{k}x{n}: kernel "
-            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{library_ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms "
-            f"({rows[-1]['bound_by']})")
+        r = rows[-1]
+        say(f"[time] fused_linear {role} {m}x{k}x{n} path={p.path} "
+            f"splits={p.splits}: kernel {r['ms']:.4f} ms "
+            f"({r['achieved_bytes_per_s'] / 1e12:.2f} TB/s), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"library with casts {r['library_cast_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); device only: kernel "
+            f"{device_ms:.4f} ms, library {library_device_ms:.4f} ms"
+            + (f"; generic path {generic_ms:.4f} ms" if generic_ms else "")
+            + f"; card {card}")
         del x, w, b, x16, w16, b16
     return rows
+
+
+def ptxas_summary(log: str) -> str:
+    """Registers and spills of each kernel in an ``nvcc -Xptxas=-v`` log
+    (one entry per kernel name and count), and any wgmma serialisation."""
+    names = ("fused_linear_stream_kernel", "fused_linear_splitk_reduce_kernel",
+             "fused_linear_dot_kernel", "fused_linear_generic_kernel",
+             "per_image_normalize")
+    seen, name, spill = {}, None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = next((k for k in names if k in line), "other")
+        elif "spill stores" in line:
+            spill = line.strip().split(",")[1].strip()
+        elif "registers" in line and "Used" in line and name:
+            regs = line.split("Used ")[1].split(" registers")[0]
+            seen.setdefault(f"{name} {regs} registers, {spill}", None)
+            name = None
+        elif "serialized" in line:
+            seen.setdefault("WARNING " + line.split(":", 1)[-1].strip(), None)
+    return "; ".join(seen)
 
 
 def check_per_image_normalize(pin, torch) -> float:
@@ -417,11 +532,21 @@ def fid_setup(torch) -> str:
     return path
 
 
+def planned_paths(fl, torch, shapes) -> dict:
+    """fused_linear launches by path for one call at each shape, as ``plan``
+    sends the port's float32 (N, K) weight."""
+    paths = {}
+    for _, m, k, n, _, xdt, calls in shapes:
+        p = fl.plan(m, n, k, getattr(torch, xdt), torch.float32, True)
+        paths[p.path] = paths.get(p.path, 0) + calls
+    return paths
+
+
 def train(fl, pin, mode: str, size: int, card: str,
-          stats_path: str = "") -> dict:
+          stats_path: str = "") -> tuple:
     """Full-width training through the trainer CLI, with FID over
     N_SAMPLES decoded samples when ``stats_path`` is given; returns the
-    kernel launches it made."""
+    kernel launches it made and fused_linear's launches by path."""
     from disentangle_mlp_tpu_torch.cli.train import main as train_main
     import torch
 
@@ -440,12 +565,14 @@ def train(fl, pin, mode: str, size: int, card: str,
     else:
         argv += ["--calc_fid", "False"]
     fl.launches = pin.launches = 0
+    fl.path_launches.clear()
     t0 = time.perf_counter()
     out = train_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"fused_linear": fl.launches,
                 "per_image_normalize": pin.launches}
+    by_path = dict(fl.path_launches)
     want = {"fused_linear": LAUNCHES_PER_STEP * steps
             + (FID_FUSED_LINEAR_LAUNCHES if stats_path else 0),
             "per_image_normalize": NORM_LAUNCHES_PER_EPOCH if stats_path
@@ -458,6 +585,13 @@ def train(fl, pin, mode: str, size: int, card: str,
         fail(f"train {mode}: kernel launches {launches}, expected {want} "
              f"({LAUNCHES_PER_STEP} fused_linear per step x {steps} steps"
              f"{', plus the FID epoch' if stats_path else ''})")
+    want_paths = planned_paths(fl, torch, [
+        s[:-1] + (s[-1] * steps,) for s in FUSED_LINEAR_SHAPES]
+        + ([FID_DECODE_SHAPE[:-1] + (FID_FUSED_LINEAR_LAUNCHES,)]
+           if stats_path else []))
+    if by_path != want_paths:
+        fail(f"train {mode}: fused_linear launches by path {by_path}, "
+             f"expected {want_paths} from plan")
     fid_note = "no FID"
     if stats_path:
         fid = out["FID"]
@@ -474,9 +608,10 @@ def train(fl, pin, mode: str, size: int, card: str,
     say(f"[train] {mode}: {steps} steps at batch {BATCH}, bf16, full "
         f"width; {rate:.1f} img/s, {BATCH / rate * 1e3:.2f} ms/step "
         f"(steps 2..{steps}, FID excluded); wall {wall:.1f} s incl. init; "
-        f"{fid_note}; launches {json.dumps(launches)}; last step "
-        f"{json.dumps(metrics)}; card {card}")
-    return launches
+        f"{fid_note}; launches {json.dumps(launches)}, fused_linear by path "
+        f"{json.dumps(by_path)}; last step {json.dumps(metrics)}; card "
+        f"{card}")
+    return launches, by_path
 
 
 def fid_split(stats_path: str, card: str) -> dict:
@@ -561,12 +696,15 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = _build.build_all(["fused_linear", "per_image_normalize"])
     say(f"[build] {', '.join(str(p.name) for p in libs.values())} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (one nvcc a source, in parallel; "
+        f"flags {' '.join(_build.NVCC_FLAGS)})")
+    for name, log in _build.build_logs.items():
+        say(f"[build] ptxas {name}: {ptxas_summary(log)}")
     worst = check_fused_linear(fl, torch)
     norm_err = check_per_image_normalize(pin, torch)
 
     # 3. time
-    rows = time_fused_linear(fl, torch)
+    rows = time_fused_linear(fl, torch, card)
     norm_row = time_per_image_normalize(pin, torch)
 
     shutil.rmtree(RUN_DIR, ignore_errors=True)
@@ -576,25 +714,37 @@ def main() -> None:
         # 5. train: observed with FID, intent without
         runs = [train(fl, pin, "observed", 4 * BATCH, card, stats_path),
                 train(fl, pin, "intent", 2 * BATCH, card)]
-        launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+        launches = {k: sum(r[0][k] for r in runs) for k in runs[0][0]}
+        by_path = {}
+        for _, paths in runs:
+            for k, v in paths.items():
+                by_path[k] = by_path.get(k, 0) + v
         # 6. the FID phase, part by part
         fid_split(stats_path, card)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
 
     # 7. report
-    def per_step(key):
+    def per_step(key):  # the decode's row has 0 launches per step
         return sum(r[key] * r["launches_per_step"] for r in rows)
 
     t_bytes = sum(r["bytes"] * r["launches_per_step"]
                   for r in rows) / HBM_BYTES_PER_S
     t_ops = sum(r["flops"] * r["launches_per_step"]
                 for r in rows) / BF16_FLOPS_PER_S
+    say(f"[time] fused_linear per step ({LAUNCHES_PER_STEP} launches): "
+        f"kernel {per_step('ms'):.4f} ms, device only "
+        f"{per_step('device_ms'):.4f} ms, bound "
+        f"{max(t_bytes, t_ops) * 1e3:.4f} ms, plain "
+        f"{per_step('plain_ms'):.4f} ms, library {per_step('library_ms'):.4f}"
+        f" ms, library with casts {per_step('library_cast_ms'):.4f} ms; "
+        f"card {card}")
     kernels = [{
         "name": "fused_linear", "route": "cuda",
         "source": "disentangle_mlp_tpu_torch/csrc/fused_linear.cu",
         "replaces": "disentangle_mlp_tpu/ops/pallas/matmul_fused.py:71",
         "launches": launches["fused_linear"],
+        "launches_by_path": by_path,
         "max_abs_err": worst["max_abs_err"],
         "max_rel_err": worst["max_rel_err"],
         "grad_rel_err": worst["grad_rel_err"],
@@ -602,8 +752,10 @@ def main() -> None:
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": per_step("library_ms"),
+        "library_cast_ms": per_step("library_cast_ms"),
+        "device_ms": per_step("device_ms"),
         "times_are": f"sums over the {LAUNCHES_PER_STEP} launches of one "
-                     f"training step",
+                     f"training step (the FID decode's row is per call)",
         "shapes": rows,
     }, {
         "name": "per_image_normalize", "route": "cuda",

@@ -8,9 +8,9 @@ flags shrink it), trains WARMUP steps on one synthetic batch, then times
 STEPS steps with CUDA events (ms/step) and profiles as many more with
 ``torch.profiler``. Prints one JSON object: ms/step, device busy time,
 idle share and kernel count per step, device time per kernel category and
-the top kernels by device time, fused_linear launches per step, peak device
-memory, and the card. A CUDA device is required: there is no CPU
-measurement.
+the top kernels by device time, fused_linear launches per step (in all and
+by path), peak device memory, and the card. A CUDA device is required:
+there is no CPU measurement.
 """
 
 from __future__ import annotations
@@ -28,9 +28,11 @@ from ..train.vaegan import VAEGANExperiment
 WARMUP, STEPS, TOP = 5, 20, 12
 # (category, substrings of a lower-cased kernel name); first match wins.
 # cuDNN's implicit-GEMM convolutions carry "gemm" in their names too, so
-# the convolution patterns come before the matmul ones.
+# the convolution patterns come before the matmul ones. Every device kernel
+# of csrc/fused_linear.cu is named fused_linear_*: the stream path and its
+# split-K reducer, the dot path, the generic path.
 CATEGORIES = (
-    ("fused_linear", ("fused_linear_kernel",)),
+    ("fused_linear", ("fused_linear_",)),
     ("convolution", ("conv", "cudnn", "dgrad", "wgrad", "fprop")),
     ("matmul", ("gemm", "nvjet", "cublas")),
     ("optimizer", ("multi_tensor", "foreach")),
@@ -95,6 +97,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         exp.train_step(x)
     torch.cuda.synchronize()
     fl.launches = 0
+    fl.path_launches.clear()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(STEPS):
@@ -103,6 +106,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     torch.cuda.synchronize()
     ms_per_step = start.elapsed_time(end) / STEPS
     launches = fl.launches / STEPS
+    by_path = {p: c / STEPS for p, c in sorted(fl.path_launches.items())}
 
     torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -124,6 +128,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         "device_idle_share": max(0.0, 1.0 - brk["busy_ms"] / ms_per_step),
         "device_kernels_per_step": brk["kernels_per_step"],
         "fused_linear_launches_per_step": launches,
+        "fused_linear_launches_per_step_by_path": by_path,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "by_category_ms_per_step": brk["by_category_ms"],
         "top_kernels": brk["top_kernels"],

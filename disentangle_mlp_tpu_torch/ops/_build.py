@@ -6,7 +6,9 @@ an edited source rebuilds) and loaded with ``ctypes``. The sources expose a
 plain C interface, so a build takes seconds and needs no PyTorch headers.
 Nothing is built when a module is imported: the first launch of a kernel
 builds it, and ``build_all`` builds every source at once, one ``nvcc`` per
-source, all started together.
+source, all started together. ``ptxas -v`` reports each kernel's registers,
+shared memory and spills; ``build_logs`` keeps that output of the builds
+this process ran.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+build_logs: Dict[str, str] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -72,6 +75,7 @@ def _finish(name: str, target: Path, proc, tmp: Path) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
+    build_logs[name] = out
     os.replace(tmp, target)  # atomic: a concurrent build sees all or nothing
 
 
