@@ -26,15 +26,22 @@ Phases, each fatal on failure:
    port's ``compute_dataset_statistics``; those images scored against their
    own statistics (|FID| ≈ 0); pool3 on the card against pool3 on the CPU;
 5. train: the port's trainer CLI at full default width (batch 256, 64×64×3,
-   n_hidden 128, bf16), synthetic data, 4 steps in freeze mode 'observed'
-   with FID over 1000 decoded samples (and their PNG files), then 2 steps in
-   'intent' without FID; every loss and the FID finite, and each kernel's
-   launch count, set to 0 just before each run and read just after, equal
-   to what the run's code path launches (fused_linear's also by path);
-6. the FID phase once more, timed part by part (decode, normalize, pool3,
+   n_hidden 128, bf16), synthetic data: the β-VAE-GAN 4 steps in freeze
+   mode 'observed' with FID over 1000 decoded samples (and their PNG
+   files), then 2 steps in 'intent' without FID, saving its checkpoint
+   (the JAX package's format; the save timed); the plain VAE 2 steps
+   without FID; the DCGAN 3 steps with FID over 1000 generated samples.
+   Every loss and FID finite, and each kernel's launch count, set to 0 just
+   before each run and read just after, equal to what the run's code path
+   launches (fused_linear's also by path);
+6. eval: the evaluation CLI sweeps the 'intent' checkpoint (FID,
+   reconstruction, originals and sample grids), its launches checked the
+   same way, and the checkpoint restored into a new experiment gives back
+   the saved states bit for bit;
+7. the FID phase once more, timed part by part (decode, normalize, pool3,
    Fréchet, PNG writes), with the decoder's BatchNorm running statistics
    checked unchanged by the sampling decode;
-7. print the ``kernels`` JSON line, the card line and, last, the ok line.
+8. print the ``kernels`` JSON line, the card line and, last, the ok line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 package is missing.
@@ -73,9 +80,33 @@ FUSED_LINEAR_SHAPES = [
     ("sigmoid_output", BATCH, 2048, 1, "none", "float32", 5),
 ]
 LAUNCHES_PER_STEP = sum(s[-1] for s in FUSED_LINEAR_SHAPES)
+# ... and of one step of each experiment (train/vae.py: the two encoder
+# heads and the decoder's input layer; train/gan.py: G once, D three times,
+# on x, on G(z) and on G(z) again for G's step)
+STEP_SHAPES = {
+    "betavaegan": FUSED_LINEAR_SHAPES,
+    "vae": [("mu_fc1/lv_fc1", BATCH, 16384, 2048, "none", "bfloat16", 2),
+            ("mu_fc2/lv_fc2", BATCH, 2048, 128, "none", "bfloat16", 2),
+            ("preprocess", BATCH, 128, 16384, "none", "bfloat16", 1)],
+    "gan": [("preprocess", BATCH, 128, 16384, "none", "bfloat16", 1),
+            ("lth_features", BATCH, 16384, 2048, "leaky_relu", "bfloat16", 3),
+            ("sigmoid_output", BATCH, 2048, 1, "none", "float32", 3)],
+}
 # the FID decode's one call per epoch: preprocess, 1000 latents
 FID_DECODE_SHAPE = ("fid_decode/preprocess", 1000, 128, 16384, "none",
                     "bfloat16", 0)
+# The evaluation sweep of one β-VAE-GAN checkpoint (train/loop.py
+# _eval_sweep, batch_size_test 5): the FID decode, the reconstruction of the
+# first test batch (both encoder heads, then the decoder) and the decode of
+# the 5-sample grid. (role, M, K, N, activation, x dtype, calls per sweep)
+TEST_BATCH = 5
+SWEEP_SHAPES = [
+    FID_DECODE_SHAPE[:-1] + (1,),
+    ("recon/mu_fc1/lv_fc1", TEST_BATCH, 16384, 2048, "none", "bfloat16", 2),
+    ("recon/mu_fc2/lv_fc2", TEST_BATCH, 2048, 128, "none", "bfloat16", 2),
+    ("recon/preprocess", TEST_BATCH, 128, 16384, "none", "bfloat16", 1),
+    ("samples/preprocess", TEST_BATCH, 128, 16384, "none", "bfloat16", 1),
+]
 # Shapes at the edges of fused_linear's paths (csrc/fused_linear.cu): batch
 # rows around the stream path's 256-row tile, output features around its
 # 128-row tile and the dot path's N < 64, and K = 2056 (33 slices of 64, the
@@ -259,13 +290,14 @@ def check_fused_linear(fl, torch) -> dict:
         grad("odd 100x300x70", x, w, b, act, torch.float32)
     # the training step's shapes and the FID decode's, as the port calls
     # them: a float32 (N, K) weight read through its transpose
-    for role, m, k, n, act, xdt, per_step in (FUSED_LINEAR_SHAPES
-                                              + [FID_DECODE_SHAPE]):
+    for role, m, k, n, act, xdt, per_step in (
+            FUSED_LINEAR_SHAPES + [FID_DECODE_SHAPE]
+            + [s[:-1] + (0,) for s in SWEEP_SHAPES[1:4]]):
         x, w, b = inputs(m, k, n, getattr(torch, xdt))
         label = f"{role} {m}x{k}x{n}"
         for out in (torch.bfloat16, torch.float32):
             fwd(label, x, w.t(), b, act, out, identity=True)
-        if per_step:  # the decode runs without gradients
+        if per_step:  # the decode and the sweep run without gradients
             grad(label, x, w, b, act, torch.bfloat16)
         del x, w, b
     for label, m, k, n, act, xdt in FUSED_LINEAR_EDGES:
@@ -542,20 +574,64 @@ def planned_paths(fl, torch, shapes) -> dict:
     return paths
 
 
-def train(fl, pin, mode: str, size: int, card: str,
-          stats_path: str = "") -> tuple:
-    """Full-width training through the trainer CLI, with FID over
-    N_SAMPLES decoded samples when ``stats_path`` is given; returns the
-    kernel launches it made and fused_linear's launches by path."""
+# the loss values each experiment's run returns
+RUN_LOSSES = {"betavaegan": ("Avg Eec Loss", "Avg Dis Loss"),
+              "vae": ("Avg Loss",), "gan": ("Avg Loss G", "Avg Loss E")}
+
+
+def count_launches(fl, pin, run) -> tuple:
+    """``run()`` with every kernel's count set to 0 just before and read
+    just after; returns (its result, launches, fused_linear by path,
+    seconds)."""
+    import torch
+
+    fl.launches = pin.launches = 0
+    fl.path_launches.clear()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, {"fused_linear": fl.launches,
+                  "per_image_normalize": pin.launches},
+            dict(fl.path_launches), wall)
+
+
+def check_launches(fl, torch, label, launches, by_path, shapes, fid) -> None:
+    """The launches of a run against what its code path makes: the
+    fused_linear calls of ``shapes`` (and the FID decode's), by the path
+    ``plan`` gives each, and per_image_normalize twice for a FID."""
+    if fid:
+        shapes = shapes + [FID_DECODE_SHAPE[:-1]
+                           + (FID_FUSED_LINEAR_LAUNCHES,)]
+    want = {"fused_linear": sum(s[-1] for s in shapes),
+            "per_image_normalize": NORM_LAUNCHES_PER_EPOCH if fid else 0}
+    if launches != want:
+        fail(f"{label}: kernel launches {launches}, expected {want}")
+    want_paths = planned_paths(fl, torch, shapes)
+    if by_path != want_paths:
+        fail(f"{label}: fused_linear launches by path {by_path}, expected "
+             f"{want_paths} from plan")
+
+
+def train(fl, pin, model: str, mode: str, size: int, card: str,
+          stats_path: str = "", save: bool = False) -> tuple:
+    """Full-width training of ``model`` through the trainer CLI, with FID
+    over N_SAMPLES samples when ``stats_path`` is given and the final
+    checkpoint saved (and the save timed) with ``save``; returns the kernel
+    launches it made, fused_linear's launches by path and, with ``save``,
+    the checkpoint's path, a copy of the states it saved and the save's
+    seconds."""
     from disentangle_mlp_tpu_torch.cli.train import main as train_main
+    from disentangle_mlp_tpu_torch.train import loop
     import torch
 
     steps = size // BATCH
-    argv = ["--model", "betavaegan", "--name", f"smoke_{mode}",
+    name = f"smoke_{model}_{mode}"
+    argv = ["--model", model, "--name", name,
             "--device", "cuda", "--epochs", "1",
             "--batch_size_train", str(BATCH), "--dtype", "bfloat16",
             "--synthetic_data", "True", "--synthetic_train_size", str(size),
-            "--checkpoint_every", "0", "--freeze_mode", mode,
+            "--checkpoint_every", "1" if save else "0", "--freeze_mode", mode,
             "--save_path", os.path.join(RUN_DIR, "%"),
             "--log_path", os.path.join(RUN_DIR, "%", "log")]
     if stats_path:
@@ -564,53 +640,137 @@ def train(fl, pin, mode: str, size: int, card: str,
                  "--fid_path_pretrained", stats_path]
     else:
         argv += ["--calc_fid", "False"]
-    fl.launches = pin.launches = 0
-    fl.path_launches.clear()
-    t0 = time.perf_counter()
-    out = train_main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"fused_linear": fl.launches,
-                "per_image_normalize": pin.launches}
-    by_path = dict(fl.path_launches)
-    want = {"fused_linear": LAUNCHES_PER_STEP * steps
-            + (FID_FUSED_LINEAR_LAUNCHES if stats_path else 0),
-            "per_image_normalize": NORM_LAUNCHES_PER_EPOCH if stats_path
-            else 0}
+    saved = {}
+    save_checkpoint = loop.save_checkpoint
+
+    def timed_save(path, epoch, states, opt_state_dtype=None):
+        states = {k: {part: _tree_map(v[part], torch.clone) for part in v}
+                  for k, v in states.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, epoch, states, opt_state_dtype)
+        saved.update(path=path, states=states,
+                     seconds=time.perf_counter() - t0,
+                     bytes=os.path.getsize(path))
+
+    loop.save_checkpoint = timed_save
+    try:
+        out, launches, by_path, wall = count_launches(
+            fl, pin, lambda: train_main(argv))
+    finally:
+        loop.save_checkpoint = save_checkpoint
     metrics = out["step_metrics"]
-    values = [out["Avg Eec Loss"], out["Avg Dis Loss"], *metrics.values()]
+    values = [out[k] for k in RUN_LOSSES[model]] + list(metrics.values())
     if not all(math.isfinite(v) for v in values):
-        fail(f"train {mode}: non-finite loss {out}")
-    if launches != want:
-        fail(f"train {mode}: kernel launches {launches}, expected {want} "
-             f"({LAUNCHES_PER_STEP} fused_linear per step x {steps} steps"
-             f"{', plus the FID epoch' if stats_path else ''})")
-    want_paths = planned_paths(fl, torch, [
-        s[:-1] + (s[-1] * steps,) for s in FUSED_LINEAR_SHAPES]
-        + ([FID_DECODE_SHAPE[:-1] + (FID_FUSED_LINEAR_LAUNCHES,)]
-           if stats_path else []))
-    if by_path != want_paths:
-        fail(f"train {mode}: fused_linear launches by path {by_path}, "
-             f"expected {want_paths} from plan")
-    fid_note = "no FID"
+        fail(f"train {model} {mode}: non-finite loss {out}")
+    shapes = [s[:-1] + (s[-1] * steps,) for s in STEP_SHAPES[model]]
+    check_launches(fl, torch, f"train {model} {mode}", launches, by_path,
+                   shapes, bool(stats_path))
+    notes = []
     if stats_path:
         fid = out["FID"]
         if not (isinstance(fid, float) and math.isfinite(fid)):
-            fail(f"train {mode}: FID {fid!r} is not a finite float")
-        pngs = glob.glob(os.path.join(RUN_DIR, f"smoke_{mode}", "fid_results",
-                                      "recons", "sample_*_0.png"))
+            fail(f"train {model} {mode}: FID {fid!r} is not a finite float")
+        # the β-VAE-GAN scores per-epoch FID into fid_results/recons, as
+        # the reference does; the other two into fid_results/samples
+        kind = "recons" if model == "betavaegan" else "samples"
+        pngs = glob.glob(os.path.join(RUN_DIR, name, "fid_results", kind,
+                                      "sample_*_0.png"))
         if len(pngs) != N_SAMPLES:
-            fail(f"train {mode}: {len(pngs)} sample PNGs, expected "
+            fail(f"train {model} {mode}: {len(pngs)} sample PNGs, expected "
                  f"{N_SAMPLES}")
-        fid_note = (f"FID {fid:.4f} over {N_SAMPLES} samples, "
-                    f"{len(pngs)} sample PNGs")
+        notes.append(f"FID {fid:.4f} over {N_SAMPLES} samples, {len(pngs)} "
+                     f"sample PNGs")
+    else:
+        notes.append("no FID")
+    if save:
+        if not saved:
+            fail(f"train {model} {mode}: no checkpoint was saved")
+        notes.append(f"checkpoint {saved['bytes'] / 1e9:.3f} GB saved in "
+                     f"{saved['seconds']:.2f} s")
     rate = out["images_per_sec"]
-    say(f"[train] {mode}: {steps} steps at batch {BATCH}, bf16, full "
+    say(f"[train] {model} {mode}: {steps} steps at batch {BATCH}, bf16, full "
         f"width; {rate:.1f} img/s, {BATCH / rate * 1e3:.2f} ms/step "
         f"(steps 2..{steps}, FID excluded); wall {wall:.1f} s incl. init; "
-        f"{fid_note}; launches {json.dumps(launches)}, fused_linear by path "
-        f"{json.dumps(by_path)}; last step {json.dumps(metrics)}; card "
-        f"{card}")
+        f"{'; '.join(notes)}; launches {json.dumps(launches)}, fused_linear "
+        f"by path {json.dumps(by_path)}; last step {json.dumps(metrics)}; "
+        f"card {card}")
+    return launches, by_path, saved
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def evaluate(fl, pin, saved: dict, stats_path: str, card: str) -> tuple:
+    """The evaluation CLI over the 'intent' run's checkpoint: FID over
+    N_SAMPLES samples, the reconstruction, originals and sample grids, the
+    sweep's launches; then the checkpoint restored into a new experiment
+    must give back the states the run saved, bit for bit."""
+    from disentangle_mlp_tpu_torch.cli.evaluate import main as evaluate_main
+    from disentangle_mlp_tpu_torch.cli.train import parse
+    from disentangle_mlp_tpu_torch.config import Config
+    from disentangle_mlp_tpu_torch.train import loop
+    from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
+    import torch
+
+    name = "smoke_eval"
+    argv = ["--model", "betavaegan", "--name", name, "--device", "cuda",
+            "--freeze_mode", "intent", "--dtype", "bfloat16",
+            "--synthetic_data", "True", "--load_path", saved["path"],
+            "--calc_fid", "True", "--n_samples", str(N_SAMPLES),
+            "--fid_path_pretrained", stats_path, "--test_recons", "True",
+            "--test_samples", "True",
+            "--save_path", os.path.join(RUN_DIR, "%"),
+            "--log_path", os.path.join(RUN_DIR, "%", "log")]
+    out, launches, by_path, wall = count_launches(
+        fl, pin, lambda: evaluate_main(argv))
+    check_launches(fl, torch, "eval", launches, by_path, SWEEP_SHAPES[1:],
+                   True)
+    (rec,) = out["sweep"]
+    fid, epoch = rec["FID"], rec["Epoch"]
+    if not (isinstance(fid, float) and math.isfinite(fid)):
+        fail(f"eval: FID {fid!r} is not a finite float")
+    results = os.path.join(RUN_DIR, name, "test_results")
+    grids = [os.path.join(results, d, f"{stem}_{epoch}.png")
+             for d, stem in (("recons", "recon"), ("originals", "original"),
+                             ("samples", "sample"))]
+    missing = [g for g in grids if not os.path.isfile(g)]
+    if missing:
+        fail(f"eval: grids missing: {missing}")
+    _, device, kwargs = parse("smoke", argv)  # the sweep's own config
+    exp = VAEGANExperiment(Config(**kwargs), device)
+    t0 = time.perf_counter()
+    loop._restore(exp, saved["path"])
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    restored = dict(_tree_leaves(exp.states()))
+    want = dict(_tree_leaves(saved["states"]))
+    if restored.keys() != want.keys():
+        fail("eval: the restored states have another structure than the "
+             "saved ones")
+    differ = [k for k, v in want.items()
+              if not (restored[k].dtype == v.dtype
+                      and torch.equal(restored[k], v))]
+    if differ:
+        fail(f"eval: {len(differ)} restored leaves differ from the saved "
+             f"ones, e.g. {differ[:3]}")
+    say(f"[eval] betavaegan intent checkpoint of epoch {epoch}: FID "
+        f"{fid:.4f} over {N_SAMPLES} samples; recon, originals and sample "
+        f"grids written; wall {wall:.1f} s incl. init and load; restored "
+        f"{len(want)} leaves equal to the saved ones bit for bit (load "
+        f"{t_load:.2f} s); launches {json.dumps(launches)}, fused_linear by "
+        f"path {json.dumps(by_path)}; card {card}")
     return launches, by_path
 
 
@@ -711,34 +871,55 @@ def main() -> None:
     try:
         # 4. FID set-up
         stats_path = fid_setup(torch)
-        # 5. train: observed with FID, intent without
-        runs = [train(fl, pin, "observed", 4 * BATCH, card, stats_path),
-                train(fl, pin, "intent", 2 * BATCH, card)]
+        # 5. train: the β-VAE-GAN observed with FID, intent saving its
+        # checkpoint; the VAE without FID; the DCGAN with FID
+        runs = [train(fl, pin, "betavaegan", "observed", 4 * BATCH, card,
+                      stats_path),
+                train(fl, pin, "betavaegan", "intent", 2 * BATCH, card,
+                      save=True),
+                train(fl, pin, "vae", "observed", 2 * BATCH, card),
+                train(fl, pin, "gan", "observed", 3 * BATCH, card,
+                      stats_path)]
+        # 6. eval: sweep the intent run's checkpoint
+        runs.append(evaluate(fl, pin, runs[1][2], stats_path, card))
         launches = {k: sum(r[0][k] for r in runs) for k in runs[0][0]}
         by_path = {}
-        for _, paths in runs:
+        for paths in (r[1] for r in runs):
             for k, v in paths.items():
                 by_path[k] = by_path.get(k, 0) + v
-        # 6. the FID phase, part by part
+        # 7. the FID phase, part by part
         fid_split(stats_path, card)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
 
-    # 7. report
-    def per_step(key):  # the decode's row has 0 launches per step
-        return sum(r[key] * r["launches_per_step"] for r in rows)
+    # 8. report
+    by_role = {r["role"]: r for r in rows}
 
-    t_bytes = sum(r["bytes"] * r["launches_per_step"]
-                  for r in rows) / HBM_BYTES_PER_S
-    t_ops = sum(r["flops"] * r["launches_per_step"]
-                for r in rows) / BF16_FLOPS_PER_S
-    say(f"[time] fused_linear per step ({LAUNCHES_PER_STEP} launches): "
-        f"kernel {per_step('ms'):.4f} ms, device only "
-        f"{per_step('device_ms'):.4f} ms, bound "
-        f"{max(t_bytes, t_ops) * 1e3:.4f} ms, plain "
-        f"{per_step('plain_ms'):.4f} ms, library {per_step('library_ms'):.4f}"
-        f" ms, library with casts {per_step('library_cast_ms'):.4f} ms; "
-        f"card {card}")
+    def step(model: str) -> dict:
+        """fused_linear's sums over the launches of one ``model`` step."""
+        shapes = STEP_SHAPES[model]
+
+        def total(key):
+            return sum(by_role[s[0]][key] * s[-1] for s in shapes)
+
+        t_bytes = total("bytes") / HBM_BYTES_PER_S
+        t_ops = total("flops") / BF16_FLOPS_PER_S
+        return {"launches": sum(s[-1] for s in shapes),
+                "ms": total("ms"), "device_ms": total("device_ms"),
+                "plain_ms": total("plain_ms"),
+                "library_ms": total("library_ms"),
+                "library_cast_ms": total("library_cast_ms"),
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    steps = {model: step(model) for model in STEP_SHAPES}
+    for model, st in steps.items():
+        say(f"[time] fused_linear per {model} step ({st['launches']} "
+            f"launches): kernel {st['ms']:.4f} ms, device only "
+            f"{st['device_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms, plain "
+            f"{st['plain_ms']:.4f} ms, library {st['library_ms']:.4f} ms, "
+            f"library with casts {st['library_cast_ms']:.4f} ms; card {card}")
+    main_step = steps["betavaegan"]
     kernels = [{
         "name": "fused_linear", "route": "cuda",
         "source": "disentangle_mlp_tpu_torch/csrc/fused_linear.cu",
@@ -748,14 +929,16 @@ def main() -> None:
         "max_abs_err": worst["max_abs_err"],
         "max_rel_err": worst["max_rel_err"],
         "grad_rel_err": worst["grad_rel_err"],
-        "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": per_step("library_ms"),
-        "library_cast_ms": per_step("library_cast_ms"),
-        "device_ms": per_step("device_ms"),
+        "ms": main_step["ms"], "plain_ms": main_step["plain_ms"],
+        "bound_ms": main_step["bound_ms"], "bound_by": main_step["bound_by"],
+        "library_ms": main_step["library_ms"],
+        "library_cast_ms": main_step["library_cast_ms"],
+        "device_ms": main_step["device_ms"],
         "times_are": f"sums over the {LAUNCHES_PER_STEP} launches of one "
-                     f"training step (the FID decode's row is per call)",
+                     f"β-VAE-GAN training step (per_step_by_model: of one "
+                     f"step of each experiment; the FID decode's row is per "
+                     f"call)",
+        "per_step_by_model": steps,
         "shapes": rows,
     }, {
         "name": "per_image_normalize", "route": "cuda",

@@ -1,7 +1,8 @@
-"""Step-time breakdown of the port's β-VAE-GAN training step on a GPU:
+"""Step-time breakdown of one of the port's training steps on a GPU:
 
     python -m disentangle_mlp_tpu_torch.cli.profile_step --name prof \
-        [--freeze_mode observed|intent] [trainer flags ...]
+        [--model vae|gan|betavaegan] [--freeze_mode observed|intent] \
+        [trainer flags ...]
 
 Builds the experiment at the configured width (full default width unless
 flags shrink it), trains WARMUP steps on one synthetic batch, then times
@@ -23,7 +24,12 @@ import torch
 from ..config import Config, build_arg_parser
 from ..data.pipeline import SyntheticSource
 from ..ops import fused_linear as fl
+from ..train.gan import GANExperiment
+from ..train.vae import VAEExperiment
 from ..train.vaegan import VAEGANExperiment
+
+EXPERIMENTS = {"vae": VAEExperiment, "gan": GANExperiment,
+               "betavaegan": VAEGANExperiment}
 
 WARMUP, STEPS, TOP = 5, 20, 12
 # (category, substrings of a lower-cased kernel name); first match wins.
@@ -80,14 +86,18 @@ def kernel_breakdown(events, steps: int, top: int) -> Dict:
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
-    ns = build_arg_parser("disentangle_mlp_tpu_torch step profile"
-                          ).parse_args(argv)
-    cfg = Config(**vars(ns)).finalize(make_dirs=False)
+    parser = build_arg_parser("disentangle_mlp_tpu_torch step profile")
+    parser.add_argument("--model", type=str, default="betavaegan",
+                        choices=sorted(EXPERIMENTS))
+    ns = parser.parse_args(argv)
+    model = ns.model
+    cfg = Config(**{k: v for k, v in vars(ns).items() if k != "model"}
+                 ).finalize(make_dirs=False)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step measures a CUDA device and found "
                            "none")
     device = torch.device("cuda")
-    exp = VAEGANExperiment(cfg, device)
+    exp = EXPERIMENTS[model](cfg, device)
     src = SyntheticSource(size=cfg.batch_size_train, img_size=cfg.img_size,
                           channels=cfg.input_channels, seed=cfg.seed)
     x, _ = src.load_batch(range(cfg.batch_size_train))
@@ -119,7 +129,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if brk["busy_ms"] <= 0:
         raise RuntimeError("the profiler recorded no device time")
     out = {
-        "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0), "model": model,
         "freeze_mode": cfg.freeze_mode, "dtype": cfg.dtype,
         "batch": cfg.batch_size_train, "steps": STEPS,
         "ms_per_step": ms_per_step,

@@ -5,8 +5,10 @@ surface plus ``--device``:
         --name beta25 --beta 25 --calc_fid False --synthetic_data True \
         [--device cuda|cpu] [flags of disentangle_mlp_tpu.cli.train ...]
 
-The β-VAE-GAN (``betavaegan``/``vaegan``) is ported; the other experiments
-raise until they are.
+``--model`` is ``vae``, ``gan`` or ``betavaegan`` (``vaegan`` is the same
+experiment). One ``--load_path`` resumes training from a checkpoint of
+either package; more than one, or ``--to_train False``, evaluates them
+(cli/evaluate.py).
 """
 
 from __future__ import annotations
@@ -16,26 +18,26 @@ from typing import Dict
 from ..config import Config, build_arg_parser
 from ..train.loop import RUNNERS, resolve_device
 
-MODELS = ("betavaegan", "gan", "vae", "vaegan")
 
-
-def main(argv=None) -> Dict:
-    parser = build_arg_parser("disentangle_mlp_tpu_torch trainer")
+def parse(description: str, argv=None):
+    """The trainer's flags plus ``--model`` and ``--device``; returns
+    (model, device, Config kwargs)."""
+    parser = build_arg_parser(description)
     parser.add_argument("--model", type=str, default="betavaegan",
-                        choices=MODELS)
+                        choices=sorted(RUNNERS))
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to train on (default cuda; "
-                             "cpu must be asked for)")
+                        help="torch device to run on (default cuda; cpu "
+                             "must be asked for)")
     ns = parser.parse_args(argv)
     kwargs = {k: v for k, v in vars(ns).items()
               if k not in ("model", "device")}
-    if ns.model not in RUNNERS:
-        raise NotImplementedError(
-            f"--model {ns.model} is not yet ported to the PyTorch package "
-            f"(ported: {', '.join(sorted(RUNNERS))})")
-    device = resolve_device(ns.device)
+    return ns.model, resolve_device(ns.device), kwargs
+
+
+def main(argv=None) -> Dict:
+    model, device, kwargs = parse("disentangle_mlp_tpu_torch trainer", argv)
     cfg = Config(**kwargs).finalize()
-    return RUNNERS[ns.model](cfg, device=device)
+    return RUNNERS[model](cfg, device=device)
 
 
 if __name__ == "__main__":

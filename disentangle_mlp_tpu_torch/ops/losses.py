@@ -7,7 +7,8 @@
   the training step uses it;
 - ``kld``: unweighted −½·Σ(1 + logσ² − μ² − σ²) over batch and latent dim;
 - ``sim_loss``: 0.5·Σ(f_recon − f_real)² over Dis_l features;
-- ``reconstruction_loss``: sum-reduction pixel MSE.
+- ``reconstruction_loss``: sum-reduction pixel MSE;
+- ``vae_loss``: the plain VAE's objective, pixel MSE_sum + KLD.
 """
 
 from __future__ import annotations
@@ -75,3 +76,9 @@ def reconstruction_loss(recon_x: torch.Tensor, x: torch.Tensor
     """Sum-reduction pixel MSE."""
     diff = recon_x.float() - x.float()
     return torch.sum(diff.square())
+
+
+def vae_loss(recon_x: torch.Tensor, x: torch.Tensor, mu: torch.Tensor,
+             logvar: torch.Tensor) -> torch.Tensor:
+    """Plain-VAE objective: MSE_sum + KLD."""
+    return reconstruction_loss(recon_x, x) + kld(mu, logvar)

@@ -1,4 +1,4 @@
-"""Optimizer and label sampling of the port
+"""Optimizer, label sampling and the experiments' shared helpers of the port
 (disentangle_mlp_tpu/train/common.py).
 
 :class:`Adam` is optax.adam with torch.optim.Adam's defaults (β1 0.9,
@@ -7,14 +7,76 @@ parameter of the list takes a step each call (a missing gradient counts as
 zero), and the bias corrections use one shared step count, as optax does.
 ``moment_dtype=torch.bfloat16`` is the opt-in compact mode: moments are
 stored in bf16 and all arithmetic is float32.
+
+:func:`sampling` is how every experiment decodes, generates and
+reconstructs: BatchNorm in train mode, as the JAX package samples, with the
+running-statistics update that train mode makes put back afterwards.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import contextlib
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
+
+from ..models.layers import BatchNorm
+from ..utils.params import (flax_tree, load_flax_tree, load_stats_tree,
+                            stats_tree)
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@contextlib.contextmanager
+def frozen(params: Iterable[torch.Tensor]):
+    """Parameters that do not require grad inside the block."""
+    params = [p for p in params if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+@contextlib.contextmanager
+def sampling(module: nn.Module):
+    """No gradients inside the block, and ``module``'s BatchNorm running
+    statistics as they were before it. Train-mode BatchNorm normalizes with
+    the statistics of the batch it is given (the JAX package's sampling
+    mode) and updates its running statistics in place; they are saved and
+    put back, so sampling changes nothing a checkpoint saves."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        for m, (mean, var) in zip(bns, saved):
+            m.running_mean.copy_(mean)
+            m.running_var.copy_(var)
+
+
+def model_state(module: nn.Module, opt_state) -> Dict:
+    """One network's checkpoint state in the JAX package's layout
+    (utils/checkpoint.py)."""
+    return {"params": flax_tree(module), "batch_stats": stats_tree(module),
+            "opt_state": opt_state}
+
+
+def load_model_state(module: nn.Module, state: Dict) -> None:
+    """Parameters and running statistics of :func:`model_state`; the
+    caller loads ``opt_state`` into its optimizer."""
+    load_flax_tree(module, state["params"])
+    load_stats_tree(module, state["batch_stats"])
+
+
+def grads(loss: torch.Tensor, params: List[torch.Tensor]):
+    """d loss / d params; None for a parameter the loss does not reach."""
+    return torch.autograd.grad(loss, params, allow_unused=True)
 
 
 class Adam:
@@ -59,19 +121,6 @@ class Adam:
         torch._foreach_add_(self.params, upd)
         if compact:
             for dst, src in zip(self.mu + self.nu, mu + nu):
-                dst.copy_(src)
-
-    def state_dict(self) -> Dict:
-        return {"count": self.count, "mu": [m.detach().cpu() for m in self.mu],
-                "nu": [v.detach().cpu() for v in self.nu]}
-
-    def load_state_dict(self, state: Dict) -> None:
-        if len(state["mu"]) != len(self.mu):
-            raise ValueError("optimizer state does not match the parameters")
-        self.count = int(state["count"])
-        with torch.no_grad():
-            for dst, src in zip(self.mu + self.nu,
-                                list(state["mu"]) + list(state["nu"])):
                 dst.copy_(src)
 
 

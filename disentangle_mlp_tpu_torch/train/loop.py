@@ -1,9 +1,16 @@
-"""Epoch loop of the port's β-VAE-GAN experiment
-(disentangle_mlp_tpu/train/loop.py ``run_vaegan``; reference
-experiments/new_betavaegan.py:211-267): config → logger → data → models →
-per epoch: train over batches → checkpoint → FID over ``n_samples``
-decoded samples → console line + JSON record
-{Epoch, Avg Eec Loss, Avg Dnc Loss, Avg Dis Loss, FID}.
+"""Epoch loop of the port's three experiments
+(disentangle_mlp_tpu/train/loop.py; reference experiments/new_vae.py,
+new_gan.py, new_betavaegan.py): config → logger → data → models → per
+epoch: train over batches → checkpoint → FID over ``n_samples`` samples →
+console line + JSON record; afterwards the ``--load_path`` evaluation sweep
+(FID, reconstructions, samples of each listed checkpoint). Logged keys per
+experiment, as the JAX package logs them:
+
+  vae:        {Epoch, Avg Loss, FID}
+  gan:        {Epoch, Avg Loss G, Avg Loss E, FID}   ("Avg Loss E" holds
+              the true average D loss, the JAX package's documented
+              deviation from the reference's logging bug)
+  betavaegan: {Epoch, Avg Eec Loss, Avg Dnc Loss, Avg Dis Loss, FID}
 
 Per-epoch FID is scored asynchronously, as in the JAX package: the device
 work (decode, per-image normalize, pool3, uint8 quantize) runs at epoch end
@@ -13,9 +20,9 @@ record are emitted when the next epoch ends (the last at loop exit).
 Values and record order are those of inline scoring; DMT_ASYNC_FID=0
 scores inline.
 
-Not ported yet, and refused rather than skipped: FID statistics of an image
-directory, the ``--load_path`` eval sweep, profiling and multi-device
-meshes.
+Not ported yet, and refused rather than skipped: datasets other than
+celebA (data/pipeline.py), FID statistics of an image directory,
+profiling and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -30,11 +37,14 @@ import torch
 from ..config import Config
 from ..data.pipeline import get_data_loader
 from ..eval import fid as fid_mod
-from ..eval.samples import (_sample_latents, generate_fid_samples,
+from ..eval.samples import (_sample_latents, gen_reconstructions,
+                            generate_fid_samples, generate_samples,
                             write_sample_files)
 from ..utils.checkpoint import (load_checkpoint, rotate_checkpoints,
                                 save_checkpoint)
 from ..utils.logger import Logger
+from .gan import GANExperiment
+from .vae import VAEExperiment
 from .vaegan import VAEGANExperiment
 
 
@@ -100,19 +110,11 @@ class Throughput:
         return self.images / dt if dt > 0 else 0.0
 
 
-def _states(exp: VAEGANExperiment) -> Dict:
-    opt = exp.optimizer_state()
-    return {"eg": {"model": exp.vae.state_dict(), "opt": opt["eg"]},
-            "d": {"model": exp.discriminator.state_dict(), "opt": opt["d"]}}
-
-
-def _restore(exp: VAEGANExperiment, path: str) -> int:
-    ckpt = load_checkpoint(path, exp.device)
-    exp.vae.load_state_dict(ckpt["eg"]["model"])
-    exp.discriminator.load_state_dict(ckpt["d"]["model"])
-    exp.load_optimizer_state({"eg": ckpt["eg"]["opt"],
-                              "d": ckpt["d"]["opt"]})
-    return int(ckpt["epoch"])
+def _restore(exp, path: str) -> int:
+    """Load the checkpoint at ``path`` into ``exp``; returns its epoch."""
+    epoch, states = load_checkpoint(path, exp.states())
+    exp.load_states(states)
+    return epoch
 
 
 def _maybe_fid(cfg: Config, decode_fn: Callable, epoch: int, path: str,
@@ -252,11 +254,6 @@ def _refuse_unported(cfg: Config) -> None:
             f"FID statistics of an image directory "
             f"(--fid_path_pretrained {cfg.fid_path_pretrained!r}) are not "
             f"yet ported; pass a .npz stats file")
-    if cfg.load_path and (len(cfg.load_path) > 1 or not cfg.to_train
-                          or cfg.test_recons or cfg.test_samples):
-        raise NotImplementedError(
-            "the --load_path evaluation sweep is not yet ported; one "
-            "--load_path resumes training")
     if cfg.profile_dir:
         raise NotImplementedError("--profile_dir is not yet ported")
     if cfg.mesh_shape > 1:
@@ -264,60 +261,191 @@ def _refuse_unported(cfg: Config) -> None:
                                   "--mesh_shape above 1 is not yet ported")
 
 
+class _Run:
+    """What every experiment's run shares: the experiment on its device,
+    the loaders, the start epoch (one ``--load_path`` resumes; more than
+    one only evaluates), the img/s meter and the epoch emitter."""
+
+    def __init__(self, cfg: Config, make: Callable, logger, device):
+        _refuse_unported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.train_loader, _, self.test_loader = get_data_loader(
+            cfg, self.device)  # refuses the datasets not ported yet
+        self.logger = logger or Logger(cfg.log_path, cfg)
+        self.exp = make(cfg, self.device)
+        self.start_epoch = 0
+        if len(cfg.load_path) > 1 and cfg.to_train:
+            # the reference silently trains from scratch here; the JAX
+            # package raises
+            raise ValueError("Cannot load more than one model for training")
+        if len(cfg.load_path) == 1 and cfg.to_train:
+            self.start_epoch = _restore(self.exp, cfg.load_path[0])
+        self.meter = Throughput(sync=torch.cuda.synchronize
+                                if self.device.type == "cuda" else None)
+        self.emitter = _EpochEmitter(self.logger)
+        self.m: Dict = {}
+
+    def epochs(self):
+        return range(self.start_epoch, self.cfg.epochs) if self.cfg.to_train \
+            else range(0)
+
+    def train_epoch(self, keys, progress: Optional[Callable] = None
+                    ) -> Dict[str, float]:
+        """One epoch of steps; returns each metric of ``keys`` summed over
+        the batches and divided by the dataset size. ``progress(epoch-local
+        batch index, metrics, batch)`` prints every ``log_interval``
+        batches."""
+        self.meter.resume()
+        sums = None
+        for i, (x, _) in enumerate(self.train_loader):
+            self.m = self.exp.train_step(x)
+            keep = {k: self.m[k] for k in keys}
+            sums = keep if sums is None else \
+                {k: sums[k] + keep[k] for k in sums}
+            self.meter.add(x.shape[0])
+            if progress is not None and i % self.cfg.log_interval == 0:
+                progress(i, self.m, x)
+        n = self.train_loader.dataset_size
+        self.meter.pause()
+        return {k: float(v) / n for k, v in sums.items()}
+
+    def checkpoint(self, epoch: int) -> None:
+        cfg = self.cfg
+        if _ckpt_due(cfg, epoch):
+            save_checkpoint(f"{cfg.model_path}/model_{epoch + 1}", epoch + 1,
+                            self.exp.states(), cfg.checkpoint_save_dtype)
+            rotate_checkpoints(cfg.model_path, cfg.keep_checkpoints)
+
+    def finish(self, sample_fn: Callable, recon_fn: Optional[Callable]
+               ) -> Dict:
+        last = self.emitter.finish()
+        last["sweep"] = _eval_sweep(self.cfg, self.exp, sample_fn, recon_fn,
+                                    self.test_loader, self.device)
+        last["images_per_sec"] = self.meter.rate()
+        last["step_metrics"] = {k: float(v) for k, v in self.m.items()}
+        return last
+
+
+def run_vae(cfg: Config, logger: Optional[Logger] = None,
+            device="cuda") -> Dict:
+    """Train the plain VAE for ``cfg.epochs``, then sweep ``--load_path``;
+    returns the last epoch's {Avg Loss, FID}, ``images_per_sec``, the last
+    step's metrics (``step_metrics``) and the sweep's records."""
+    run = _Run(cfg, VAEExperiment, logger, device)
+    exp = run.exp
+
+    def progress(i, m, x):
+        print(f"Train Epoch: {epoch} [{i}/{len(run.train_loader)}] "
+              f"Loss: {float(m['loss']) / x.shape[0]:.6f}", flush=True)
+
+    for epoch in run.epochs():
+        avg = run.train_epoch(("loss",), progress)["loss"]
+        run.checkpoint(epoch)
+        run.emitter.emit(
+            _maybe_fid_async(cfg, exp.decode, epoch, cfg.fid_path_samples,
+                             device=run.device),
+            lambda fid, e=epoch, a=avg: {"Epoch": e, "Avg Loss": a,
+                                         "FID": fid},
+            f"====> Epoch: {epoch} Average loss: {avg:.4f} FID: {{fid}} "
+            f"({run.meter.rate():.1f} img/s)")
+    return run.finish(exp.decode, exp.reconstruct)
+
+
+def run_gan(cfg: Config, logger: Optional[Logger] = None,
+            device="cuda") -> Dict:
+    """Train the DCGAN for ``cfg.epochs``, then sweep ``--load_path``;
+    returns the last epoch's {Avg Loss G, Avg Loss E, FID} ("Avg Loss E"
+    holding the average D loss), ``images_per_sec``, ``step_metrics`` and
+    the sweep's records."""
+    run = _Run(cfg, GANExperiment, logger, device)
+    exp = run.exp
+
+    def progress(i, m, x):
+        print(f"[{epoch}/{cfg.epochs}][{i}/{len(run.train_loader)}] "
+              f"Loss_D: {float(m['errD']):.4f} "
+              f"Loss_G: {float(m['errG']):.4f} D(x): {float(m['D_x']):.4f} "
+              f"D(G(z)): {float(m['D_G_z1']):.4f}/{float(m['D_G_z2']):.4f}",
+              flush=True)
+
+    for epoch in run.epochs():
+        avg = run.train_epoch(("errG", "errD"), progress)
+        run.checkpoint(epoch)
+        g, d = avg["errG"], avg["errD"]
+        run.emitter.emit(
+            _maybe_fid_async(cfg, exp.generate, epoch, cfg.fid_path_samples,
+                             device=run.device),
+            lambda fid, e=epoch, a=g, b=d: {"Epoch": e, "Avg Loss G": a,
+                                            "Avg Loss E": b, "FID": fid},
+            f"====> Epoch: {epoch} Average loss G: {g:.4f} "
+            f"Average loss D: {d:.4f} FID: {{fid}} "
+            f"({run.meter.rate():.1f} img/s)")
+    return run.finish(exp.generate, None)
+
+
 def run_vaegan(cfg: Config, logger: Optional[Logger] = None,
                device="cuda") -> Dict:
-    """Train the β-VAE-GAN for ``cfg.epochs``; returns the last epoch's
-    {Avg Eec Loss, Avg Dis Loss, FID}, ``images_per_sec`` and the last
-    step's metrics as floats (``step_metrics``)."""
-    _refuse_unported(cfg)
-    device = resolve_device(device)
-    logger = logger or Logger(cfg.log_path, cfg)
-    exp = VAEGANExperiment(cfg, device)
-    train_loader, _, _ = get_data_loader(cfg, device)
-    start_epoch = _restore(exp, cfg.load_path[0]) if cfg.load_path else 0
-
-    meter = Throughput(sync=torch.cuda.synchronize
-                       if device.type == "cuda" else None)
-    emitter = _EpochEmitter(logger)
-    m: Dict = {}
-    if cfg.to_train:
-        for epoch in range(start_epoch, cfg.epochs):
-            meter.resume()
-            sums = None
-            for x, _ in train_loader:
-                m = exp.train_step(x)
-                keep = {k: m[k] for k in
-                        ("recon_enc", "recon_dec", "dis", "D_x")}
-                sums = keep if sums is None else \
-                    {k: sums[k] + keep[k] for k in sums}
-                meter.add(x.shape[0])
-            n = train_loader.dataset_size
-            enc_l, dec_l = float(sums["recon_enc"]) / n, \
-                float(sums["recon_dec"]) / n
-            dis_l, d_x = float(sums["dis"]) / n, float(sums["D_x"]) / n
-            meter.pause()
-            if _ckpt_due(cfg, epoch):
-                save_checkpoint(f"{cfg.model_path}/model_{epoch + 1}",
-                                epoch + 1, _states(exp))
-                rotate_checkpoints(cfg.model_path, cfg.keep_checkpoints)
-            # the reference scores per-epoch FID into fid_path_recons
-            # (new_betavaegan.py:234)
-            emitter.emit(
-                _maybe_fid_async(cfg, exp.decode, epoch, cfg.fid_path_recons,
-                                 device=device),
-                lambda fid, e=epoch, a=enc_l, b=dec_l, c=dis_l: {
-                    "Epoch": e, "Avg Eec Loss": a, "Avg Dnc Loss": b,
-                    "Avg Dis Loss": c, "FID": fid},
-                f"====> Epoch: {epoch} Avg Encoder Loss: {enc_l:.4f} "
-                f"Avg Decoder Loss: {dec_l:.4f} "
-                f"Avg Discriminator Loss: {dis_l:.4f} FID: {{fid}} "
-                f"Dx: {d_x:.4f} ({meter.rate():.1f} img/s)",
-                last_fn=lambda rec: {k: rec[k] for k in
-                                     ("Avg Eec Loss", "Avg Dis Loss", "FID")})
-    last = emitter.finish()
-    last["images_per_sec"] = meter.rate()
-    last["step_metrics"] = {k: float(v) for k, v in m.items()}
-    return last
+    """Train the β-VAE-GAN for ``cfg.epochs``, then sweep ``--load_path``;
+    returns the last epoch's {Avg Eec Loss, Avg Dis Loss, FID},
+    ``images_per_sec``, ``step_metrics`` and the sweep's records."""
+    run = _Run(cfg, VAEGANExperiment, logger, device)
+    exp = run.exp
+    for epoch in run.epochs():
+        avg = run.train_epoch(("recon_enc", "recon_dec", "dis", "D_x"))
+        run.checkpoint(epoch)
+        enc_l, dec_l, dis_l = avg["recon_enc"], avg["recon_dec"], avg["dis"]
+        # the reference scores per-epoch FID into fid_path_recons
+        # (new_betavaegan.py:234)
+        run.emitter.emit(
+            _maybe_fid_async(cfg, exp.decode, epoch, cfg.fid_path_recons,
+                             device=run.device),
+            lambda fid, e=epoch, a=enc_l, b=dec_l, c=dis_l: {
+                "Epoch": e, "Avg Eec Loss": a, "Avg Dnc Loss": b,
+                "Avg Dis Loss": c, "FID": fid},
+            f"====> Epoch: {epoch} Avg Encoder Loss: {enc_l:.4f} "
+            f"Avg Decoder Loss: {dec_l:.4f} "
+            f"Avg Discriminator Loss: {dis_l:.4f} FID: {{fid}} "
+            f"Dx: {avg['D_x']:.4f} ({run.meter.rate():.1f} img/s)",
+            last_fn=lambda rec: {k: rec[k] for k in
+                                 ("Avg Eec Loss", "Avg Dis Loss", "FID")})
+    return run.finish(exp.decode, exp.reconstruct)
 
 
-RUNNERS = {"betavaegan": run_vaegan, "vaegan": run_vaegan}
+def sweep_epoch(epoch: int, previous: int) -> int:
+    """The epoch a sweep files a checkpoint under: its own, unless that is
+    not above the previous checkpoint's, then the previous one plus 1 (the
+    reference's de-collision, new_betavaegan.py:253-254)."""
+    return epoch if (epoch != previous and previous < epoch) \
+        else previous + 1
+
+
+def _eval_sweep(cfg: Config, exp, sample_fn: Callable,
+                recon_fn: Optional[Callable], test_loader, device) -> list:
+    """For each ``--load_path`` checkpoint, as the flags ask: FID over
+    ``n_samples`` samples into ``fid_path_samples``, a reconstruction grid
+    of the first test batch (and its originals), a grid of 5 samples.
+    Returns one {path, Epoch, FID} record a checkpoint."""
+    records, previous = [], 0
+    for path in cfg.load_path:
+        epoch = previous = sweep_epoch(_restore(exp, path), previous)
+        fid = "N/A"
+        if cfg.calc_fid:
+            fid = _maybe_fid(cfg, sample_fn, epoch, cfg.fid_path_samples,
+                             device=device)
+            print(f"Calculated FID: {fid}", flush=True)
+        if cfg.test_recons and recon_fn is not None:
+            gen_reconstructions(
+                recon_fn, test_loader, epoch, cfg.test_results_path_recons,
+                nrow=1, path_for_originals=cfg.test_results_path_originals)
+            print("Generated reconstructions", flush=True)
+        if cfg.test_samples:
+            generate_samples(sample_fn, epoch, 5, cfg.n_hidden,
+                             cfg.test_results_path_samples, nrow=1,
+                             rng_seed=cfg.seed, device=device)
+            print("Generated samples", flush=True)
+        records.append({"path": path, "Epoch": epoch, "FID": fid})
+    return records
+
+
+RUNNERS = {"vae": run_vae, "gan": run_gan,
+           "betavaegan": run_vaegan, "vaegan": run_vaegan}

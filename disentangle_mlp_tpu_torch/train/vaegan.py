@@ -30,39 +30,21 @@ from the experiment's generators unless the caller passes them
 
 from __future__ import annotations
 
-import contextlib
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Optional
 
 import torch
 
 from ..config import Config
 from ..models.gan import DiscriminatorCeleba
-from ..models.layers import BatchNorm
 from ..models.vae import VAE
 from ..ops.losses import bce_logits, kld, reconstruction_loss, sim_loss
-from .common import Adam, sample_labels
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-@contextlib.contextmanager
-def frozen(params: Iterable[torch.Tensor]):
-    """Parameters that do not require grad inside the block."""
-    params = [p for p in params if p.requires_grad]
-    for p in params:
-        p.requires_grad_(False)
-    try:
-        yield
-    finally:
-        for p in params:
-            p.requires_grad_(True)
+from ..utils.params import adam_from_jax, adam_to_jax
+from .common import (DTYPES, Adam, frozen, grads, load_model_state,
+                     model_state, sample_labels)
+from .vae import VAESampling
 
 
-def _grads(loss: torch.Tensor, params: List[torch.Tensor]):
-    return torch.autograd.grad(loss, params, allow_unused=True)
-
-
-class VAEGANExperiment:
+class VAEGANExperiment(VAESampling):
     """The models, their optimizers and the per-batch ``train_step``; the
     modules are updated in place."""
 
@@ -141,7 +123,7 @@ class VAEGANExperiment:
         l_real, _ = self._d(batch)
         l_fake, _ = self._d(fake)
         loss_d = bce_logits(l_real, real_l) + bce_logits(l_fake, fake_l)
-        self.opt_d.step(_grads(loss_d, self.d_params))
+        self.opt_d.step(grads(loss_d, self.d_params))
         d_x = torch.sigmoid(l_real.detach()).mean()
 
         # ---------------- (2) Decoder ---------------------------------------
@@ -156,8 +138,8 @@ class VAEGANExperiment:
             loss_dec = (bce_logits(l_fake2, real_l)
                         + bce_logits(l_recon, real_l)
                         + s_loss + reconstruction_loss(recon, batch))
-            grads = _grads(loss_dec, eg_params)
-        (self.opt_eg["dec"] if self.intent else self.opt_eg).step(grads)
+            g = grads(loss_dec, eg_params)
+        (self.opt_eg["dec"] if self.intent else self.opt_eg).step(g)
         del fake_graph
 
         # ---------------- (3) Encoder ---------------------------------------
@@ -166,8 +148,8 @@ class VAEGANExperiment:
             recon, mu, logvar = self.vae(batch, eps=eps_enc)
             k_loss = beta * kld(mu, logvar)
             r_loss = reconstruction_loss(recon, batch)
-            grads = _grads(k_loss + r_loss, enc_train)
-        (self.opt_eg["enc"] if self.intent else self.opt_eg).step(grads)
+            g = grads(k_loss + r_loss, enc_train)
+        (self.opt_eg["enc"] if self.intent else self.opt_eg).step(g)
 
         # both "enc" and "dec" running losses accumulate the encoder-phase
         # pixel MSE, and "dis" holds mean D(x) (new_betavaegan.py:107,189-190)
@@ -175,36 +157,26 @@ class VAEGANExperiment:
         return {"recon_enc": r, "recon_dec": r, "dis": d_x, "D_x": d_x,
                 "kld": k_loss.detach(), "sim": s_loss.detach()}
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """Sample images (NHWC, compute dtype) from latents ``z``, as the
-        JAX package's ``decode``: BatchNorm in train mode, normalizing with
-        the statistics of this whole batch of latents, and those statistics
-        discarded. The port's BatchNorm updates its running statistics in
-        place in train mode, so they are saved and put back: sampling
-        leaves the state a checkpoint saves untouched."""
-        bns = [m for m in self.vae.decoder.modules()
-               if isinstance(m, BatchNorm)]
-        saved = [(m.running_mean.clone(), m.running_var.clone())
-                 for m in bns]
-        try:
-            with torch.no_grad():
-                return self.vae.decode(
-                    torch.as_tensor(z, dtype=torch.float32,
-                                    device=self.device), train=True)
-        finally:
-            for m, (mean, var) in zip(bns, saved):
-                m.running_mean.copy_(mean)
-                m.running_var.copy_(var)
-
-    def optimizer_state(self) -> Dict:
-        eg = ({k: v.state_dict() for k, v in self.opt_eg.items()}
-              if self.intent else self.opt_eg.state_dict())
-        return {"eg": eg, "d": self.opt_d.state_dict()}
-
-    def load_optimizer_state(self, state: Dict) -> None:
+    def states(self) -> Dict:
+        """{"eg", "d"} in the JAX package's checkpoint layout; the
+        'intent' VAE state holds split {"dec", "enc"} Adam states."""
         if self.intent:
-            for k, opt in self.opt_eg.items():
-                opt.load_state_dict(state["eg"][k])
+            eg_opt = {"dec": adam_to_jax(self.opt_eg["dec"], self.vae.decoder),
+                      "enc": adam_to_jax(self.opt_eg["enc"], self.vae.encoder)}
         else:
-            self.opt_eg.load_state_dict(state["eg"])
-        self.opt_d.load_state_dict(state["d"])
+            eg_opt = adam_to_jax(self.opt_eg, self.vae)
+        return {"eg": model_state(self.vae, eg_opt),
+                "d": model_state(self.discriminator,
+                                 adam_to_jax(self.opt_d, self.discriminator))}
+
+    def load_states(self, states: Dict) -> None:
+        load_model_state(self.vae, states["eg"])
+        load_model_state(self.discriminator, states["d"])
+        eg_opt = states["eg"]["opt_state"]
+        if self.intent:
+            adam_from_jax(self.opt_eg["dec"], self.vae.decoder, eg_opt["dec"])
+            adam_from_jax(self.opt_eg["enc"], self.vae.encoder, eg_opt["enc"])
+        else:
+            adam_from_jax(self.opt_eg, self.vae, eg_opt)
+        adam_from_jax(self.opt_d, self.discriminator,
+                      states["d"]["opt_state"])

@@ -1,14 +1,17 @@
-"""The port's data feed, trainer CLI, checkpoints, per-epoch FID and import
-isolation (disentangle_mlp_tpu_torch: data/pipeline.py, train/loop.py,
-cli/train.py, utils/checkpoint.py, the FID path through eval/), on the CPU
-at toy width."""
+"""The port's data feed, trainer and evaluation CLIs, checkpoints,
+per-epoch FID and import isolation (disentangle_mlp_tpu_torch:
+data/pipeline.py, train/loop.py, cli/train.py, cli/evaluate.py,
+utils/checkpoint.py, the FID path through eval/), on the CPU at toy
+width."""
 
 import functools
 import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -25,12 +28,14 @@ from disentangle_mlp_tpu.eval.samples import \
     _sample_latents as jax_sample_latents
 from disentangle_mlp_tpu.models.vae import VAE as JaxVAE
 from disentangle_mlp_tpu.train import loop as jax_loop
+from disentangle_mlp_tpu_torch.cli import evaluate as cli_evaluate
 from disentangle_mlp_tpu_torch.cli import profile_step
 from disentangle_mlp_tpu_torch.cli import train as cli_train
 from disentangle_mlp_tpu_torch.config import Config
 from disentangle_mlp_tpu_torch.data.pipeline import get_data_loader
 from disentangle_mlp_tpu_torch.train import loop
 from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
+from disentangle_mlp_tpu_torch.utils import msgpack
 from disentangle_mlp_tpu_torch.utils.params import from_jax, to_numpy_tree
 from tests.test_torch_compat import (DEC_CH, DISC_CH, FEAT_DIM, HEAD, IMG,
                                      N_HIDDEN, N_Z, RS)
@@ -44,8 +49,8 @@ TOY_FLAGS = ["--n_hidden", str(N_HIDDEN), "--n_z", *map(str, N_Z),
              "--disc_feature_dim", str(FEAT_DIM), "--img_size", str(IMG)]
 
 
-def _argv(tmp_path, *extra):
-    return ["--model", "betavaegan", "--name", "port_cli", "--device", "cpu",
+def _argv(tmp_path, *extra, model="betavaegan", name="port_cli"):
+    return ["--model", model, "--name", name, "--device", "cpu",
             "--calc_fid", "False", "--synthetic_data", "True",
             "--synthetic_train_size", "8", "--batch_size_train", "4",
             "--save_path", str(tmp_path / "%"),
@@ -108,8 +113,8 @@ def test_port_checkpoint_rotation_and_resume(tmp_path, capsys):
 @pytest.mark.parametrize("extra, error, match", [
     (["--calc_fid", "True", "--fid_path_pretrained", "stats_dir"],
      NotImplementedError, "not yet ported"),
-    (["--model", "gan"], NotImplementedError, "not yet ported"),
-    (["--load_path", "a", "b"], NotImplementedError, "not yet ported"),
+    (["--dataset", "mnist"], NotImplementedError, "not ported yet"),
+    (["--profile_dir", "x"], NotImplementedError, "not yet ported"),
     (["--mesh_shape", "2"], NotImplementedError, "not yet ported"),
 ])
 def test_port_trainer_refuses_unported_paths(tmp_path, extra, error, match):
@@ -165,11 +170,12 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "msgpack")
              or m == "disentangle_mlp_tpu" or m.startswith("disentangle_mlp_tpu.")
              or m.split(".")[0] == "PIL")
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 29 else 0)
+sys.exit(1 if bad or len(names) < 33 else 0)
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
@@ -354,3 +360,124 @@ def test_port_fid_decode_leaves_batchnorm_buffers_bit_identical(tmp_path):
     with torch.no_grad():
         eval_out = exp.vae.decode(z, train=False)
     assert not torch.allclose(out, eval_out)
+
+
+# ---------------------------------------------------------------------------
+# the plain VAE and the DCGAN through the trainer, and the evaluation sweep
+# ---------------------------------------------------------------------------
+
+# log schema, checkpoint state names and the log_interval line's start of
+# each experiment, as the JAX package writes them (train/loop.py)
+EXPERIMENT_LOGS = {
+    "vae": (["Epoch", "Avg Loss", "FID"], {"model"}, "Train Epoch: {e} [0/2]"),
+    "gan": (["Epoch", "Avg Loss G", "Avg Loss E", "FID"], {"g", "d"},
+            "[{e}/2][0/2] Loss_D: "),
+}
+
+
+@pytest.mark.parametrize("model", sorted(EXPERIMENT_LOGS))
+def test_port_trainer_cli_trains_vae_and_gan(tmp_path, capsys, model):
+    schema, state_names, progress = EXPERIMENT_LOGS[model]
+    out = cli_train.main(_argv(tmp_path, "--epochs", "2", "--log_interval",
+                               "1", model=model))
+    lines = capsys.readouterr().out.splitlines()
+    for e in (0, 1):
+        assert any(ln.startswith(progress.format(e=e)) for ln in lines)
+        assert len([ln for ln in lines
+                    if ln.startswith(f"====> Epoch: {e} ")]) == 1
+    (log_file,) = glob.glob(str(tmp_path / "port_cli" / "log" / "log_*.json"))
+    with open(log_file) as f:
+        records = json.load(f)["output"]
+    assert [list(r) for r in records] == [schema, schema]
+    assert [r["Epoch"] for r in records] == [0, 1]
+    assert all(np.isfinite(r[k]) for r in records for k in schema[1:-1])
+    assert out["sweep"] == [] and out["images_per_sec"] > 0
+    assert all(np.isfinite(v) for v in out["step_metrics"].values())
+    models = tmp_path / "port_cli" / "models"
+    assert sorted(os.listdir(models)) == ["model_1", "model_2"]
+    raw = msgpack.load(str(models / "model_2"))
+    assert raw["epoch"] == 2 and set(raw["states"]) == state_names
+
+
+def _jax_sweep_epochs(epochs, monkeypatch):
+    """The epochs under which the JAX package's _eval_sweep files
+    checkpoints saved at ``epochs``, with its loading and writing stubbed
+    out."""
+    paths = [f"m{i}" for i in range(len(epochs))]
+    seen = []
+    monkeypatch.setattr(jax_loop, "load_checkpoint",
+                        lambda p, template: (epochs[paths.index(p)], template))
+    monkeypatch.setattr(jax_loop, "generate_samples",
+                        lambda fn, epoch, *a, **k: seen.append(epoch))
+    cfg = SimpleNamespace(load_path=paths, calc_fid=False, test_recons=False,
+                          test_samples=True, n_hidden=N_HIDDEN, seed=0,
+                          test_results_path_samples="")
+    jax_loop._eval_sweep(cfg, {}, None, None, None, assign=lambda s: None)
+    return seen
+
+
+@pytest.mark.parametrize("epochs", [[1, 1], [3, 3, 1, 5, 5, 9], [2, 7, 4]])
+def test_port_sweep_epoch_rule_matches_jax(monkeypatch, epochs):
+    previous, got = 0, []
+    for e in epochs:
+        previous = loop.sweep_epoch(e, previous)
+        got.append(previous)
+    assert got == _jax_sweep_epochs(epochs, monkeypatch)
+
+
+@pytest.mark.parametrize("model", ["vae", "gan", "betavaegan"])
+def test_port_evaluate_sweeps_two_checkpoints_of_one_epoch(
+        tmp_path, capsys, monkeypatch, model):
+    """cli/evaluate.py over two checkpoints both saved at epoch 1: FID,
+    sample grids and (for the models that encode) reconstruction grids of
+    each, filed under the de-collided epochs of the JAX package's rule."""
+    stats = _stats_npz(tmp_path)
+    cli_train.main(_argv(tmp_path, "--epochs", "1", model=model))
+    first = tmp_path / "port_cli" / "models" / "model_1"
+    second = tmp_path / "copy" / "model_1"
+    second.parent.mkdir()
+    shutil.copy(first, second)
+    capsys.readouterr()
+    out = cli_evaluate.main(_argv(
+        tmp_path, "--calc_fid", "True", "--n_samples", str(N_SAMPLES),
+        "--fid_path_pretrained", stats, "--test_recons", "True",
+        "--test_samples", "True", "--load_path", str(first), str(second),
+        model=model, name="port_eval"))
+    want = _jax_sweep_epochs([1, 1], monkeypatch)
+    assert [r["Epoch"] for r in out["sweep"]] == want == [1, 2]
+    assert [r["path"] for r in out["sweep"]] == [str(first), str(second)]
+    assert all(isinstance(r["FID"], float) and np.isfinite(r["FID"])
+               for r in out["sweep"])
+    printed = capsys.readouterr().out
+    assert printed.count("Calculated FID:") == 2
+    assert "====> Epoch:" not in printed  # nothing trained
+    run = tmp_path / "port_eval"
+    encodes = model != "gan"
+    for e in want:
+        assert os.path.isfile(run / "test_results" / "samples"
+                              / f"sample_{e}.png")
+        for d, name in (("recons", "recon"), ("originals", "original")):
+            assert os.path.isfile(run / "test_results" / d
+                                  / f"{name}_{e}.png") == encodes
+        assert len(glob.glob(str(run / "fid_results" / "samples"
+                                 / f"sample_*_{e}.png"))) == N_SAMPLES
+
+
+@pytest.mark.parametrize("argv", [["--model", "vae"], ["--model", "gan"],
+                                  ["evaluate"]])
+def test_port_new_entry_points_default_to_cuda(tmp_path, monkeypatch, argv):
+    """Without --device cpu the VAE, the GAN and the evaluation sweep ask
+    for CUDA, and raise where it is missing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = cli_evaluate.main if argv == ["evaluate"] else cli_train.main
+    base = [a for a in _argv(tmp_path) if a not in ("--device", "cpu")]
+    if main is cli_train.main:
+        base[base.index("--model") + 1] = argv[1]
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(base)
+
+
+def test_port_evaluate_refuses_family_datasets(tmp_path):
+    with pytest.raises(SystemExit, match="celebA-only"):
+        cli_evaluate.main(_argv(tmp_path, "--dataset", "mnist",
+                                "--load_path", "m"))

@@ -243,6 +243,9 @@ LOSS_CASES = {
     "reconstruction_loss": (jlosses.reconstruction_loss,
                             tlosses.reconstruction_loss,
                             (_x((2, 4, 4, 3), 11), _x((2, 4, 4, 3), 12))),
+    "vae_loss": (jlosses.vae_loss, tlosses.vae_loss,
+                 (_x((2, 4, 4, 3), 13), _x((2, 4, 4, 3), 14), _x((2, 5), 15),
+                  _x((2, 5), 16, -3.0, 2.0))),
 }
 
 
