@@ -41,7 +41,23 @@ Phases, each fatal on failure:
 7. the FID phase once more, timed part by part (decode, normalize, pool3,
    Fréchet, PNG writes), with the decoder's BatchNorm running statistics
    checked unchanged by the sampling decode;
-8. print the ``kernels`` JSON line, the card line and, last, the ok line.
+8. data: the JPEG decoder the card path uses (nvJPEG, its version and
+   backend); the committed JPEG fixture decoded and resized on the card
+   against the JAX package's 64×64 output for the same files (and PIL's
+   full-resolution decode of four), mean |Δ| ≤ 1 and max |Δ| ≤ 8 grey
+   levels at 64×64, max |Δ| ≤ 6 at full resolution; damaged files raise
+   naming themselves; a class-subdirectory tree of 4096 copies of the
+   fixture files through ``get_data_loader`` on the card, two epochs
+   timed: the first fills the device cache, the second decodes nothing;
+9. train on that tree: the β-VAE-GAN through the trainer CLI at full
+   default width, 'observed', 2 epochs, FID each epoch against a
+   directory of 512 of those JPEGs; losses and FIDs finite, launches
+   checked as in phase 5, img/s per epoch; then the same 2 epochs without
+   FID (the feed's rates without the FID's host work beside epoch 2);
+10. FID statistics of a directory: ``statistics_from_dir`` over the 1000
+   sample PNGs phase 7 wrote against statistics of the same uint8 arrays
+   in memory, and ``get_fid`` of that directory against the .npz;
+11. print the ``kernels`` JSON line, the card line and, last, the ok line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 package is missing.
@@ -57,6 +73,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, ".verify_runs", "chip_smoke")
@@ -153,6 +170,25 @@ TOL_SELF_FID = 1e-4
 # pool3 on the card (float32, TF32 off) against pool3 on the CPU: the CPU
 # parity tolerance against the JAX package (tests/test_torch_port_inception.py)
 TOL_POOL3 = {"rtol": 2e-3, "atol": 2e-4}
+
+# The data phases. The fixture: 16 CelebA-sized JPEGs with the JAX package's
+# 64×64 load_batch_u8 of them and PIL's full-resolution decode of four
+# (tests/test_torch_port_data.py writes it). The card upsamples and converts
+# nvJPEG's planes with libjpeg's own arithmetic (data/native.py), so only
+# the IDCT's rounding differs from libjpeg's, a level or so; the bar at
+# 64×64 also holds nvJPEG's own colour conversion (which differs by up to
+# 35 levels at full resolution, and by 8 after the 218→64 resize).
+FIXTURE = os.path.join(REPO, "disentangle_mlp_tpu_torch", "data", "fixtures")
+TOL_FIXTURE = {"mean": 1.0, "max": 8}
+TOL_FIXTURE_FULL = 6
+TREE_IMAGES = 16 * BATCH  # 16 full batches, copies of the fixture files
+TREE_CLASSES = 4
+FID_DIR_IMAGES = 512
+FOLDER_EPOCHS = 2
+# statistics of a directory of lossless PNGs against the same uint8 arrays
+# in memory, pool3 in the same batches: only float64 rounding of the sums
+# (Σx, Σxxᵀ against the centred product) remains
+TOL_DIR_STATS = 1e-9
 
 
 def fail(msg: str) -> None:
@@ -596,15 +632,17 @@ def count_launches(fl, pin, run) -> tuple:
             dict(fl.path_launches), wall)
 
 
-def check_launches(fl, torch, label, launches, by_path, shapes, fid) -> None:
+def check_launches(fl, torch, label, launches, by_path, shapes, fids) -> None:
     """The launches of a run against what its code path makes: the
     fused_linear calls of ``shapes`` (and the FID decode's), by the path
-    ``plan`` gives each, and per_image_normalize twice for a FID."""
-    if fid:
+    ``plan`` gives each, and per_image_normalize twice for each of the
+    ``fids`` FIDs."""
+    fids = int(fids)
+    if fids:
         shapes = shapes + [FID_DECODE_SHAPE[:-1]
-                           + (FID_FUSED_LINEAR_LAUNCHES,)]
+                           + (FID_FUSED_LINEAR_LAUNCHES * fids,)]
     want = {"fused_linear": sum(s[-1] for s in shapes),
-            "per_image_normalize": NORM_LAUNCHES_PER_EPOCH if fid else 0}
+            "per_image_normalize": NORM_LAUNCHES_PER_EPOCH * fids}
     if launches != want:
         fail(f"{label}: kernel launches {launches}, expected {want}")
     want_paths = planned_paths(fl, torch, shapes)
@@ -825,7 +863,341 @@ def fid_split(stats_path: str, card: str) -> dict:
     say(f"[fid] phase split over {N_SAMPLES} samples, ms (BatchNorm running "
         f"statistics unchanged; FID {score:.4f}; card {card}): "
         f"{json.dumps(ms)}")
-    return ms
+    return out_dir, u8
+
+
+def _u8_diff(got, want) -> dict:
+    import numpy as np
+
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    return {"max": int(d.max()), "mean": float(d.mean()),
+            "exact": float((d == 0).mean())}
+
+
+def data_decoder(card: str) -> dict:
+    """The JPEG decoder of the card path: nvJPEG, built and opened."""
+    from disentangle_mlp_tpu_torch.data import native
+
+    info = native.decoder_info("cuda")
+    if info["decoder"] != "nvjpeg":
+        fail(f"data: the card path decodes with {info}, not nvJPEG")
+    say(f"[data] decoder nvJPEG {info['version']}, {info['backend']} "
+        f"(JPEGs decoded on the card; the host path is libjpeg); card {card}")
+    return info
+
+
+def data_fixture(card: str) -> dict:
+    """The committed fixture on the card against the JAX package's output
+    for the same files: PIL's full-resolution decode of four, and
+    load_batch_u8 at 64×64 of all 16."""
+    import numpy as np
+    import torch
+
+    from disentangle_mlp_tpu_torch.data import native
+
+    with np.load(os.path.join(FIXTURE, "expected.npz")) as f:
+        names, u8 = list(f["names"]), f["u8_64"]
+        full_names, full = list(f["full_names"]), f["full"]
+    jpeg_dir = os.path.join(FIXTURE, "jpeg", "c0")
+    paths = [os.path.join(jpeg_dir, n) for n in names]
+    full_paths = [os.path.join(jpeg_dir, n) for n in full_names]
+    single0 = native.card_single
+    dec = native.decode(native.read_files(full_paths), full_paths, "cuda")
+    got_full = np.stack([d.cpu().numpy() for d in dec])
+    if got_full.shape != full.shape:
+        fail(f"data fixture: full-resolution decode {got_full.shape}, "
+             f"expected {full.shape}")
+    d_full = _u8_diff(got_full, full)
+    per_file = {n: _u8_diff(g, w)["max"]
+                for n, g, w in zip(full_names, got_full, full)}
+    got = native.decode_resize(native.read_files(paths), paths, 64, "cuda")
+    torch.cuda.synchronize()
+    got = got.cpu().numpy()
+    if got.shape != u8.shape:
+        fail(f"data fixture: 64x64 batch {got.shape}, expected {u8.shape}")
+    d64 = _u8_diff(got, u8)
+    worst = max(zip(names, got, u8), key=lambda t: _u8_diff(t[1], t[2])["max"])
+    say(f"[data] fixture on the card vs the JAX package's output: full "
+        f"resolution ({len(full_names)} files vs PIL) max |d| {d_full['max']}"
+        f", mean {d_full['mean']:.4f}, exact {d_full['exact']:.4f} (max by "
+        f"file {json.dumps(per_file)}); 64x64 ({len(names)} files vs "
+        f"load_batch_u8) max |d| {d64['max']}, mean {d64['mean']:.4f}, exact "
+        f"{d64['exact']:.4f} (tol mean {TOL_FIXTURE['mean']}, max "
+        f"{TOL_FIXTURE['max']}, full resolution max {TOL_FIXTURE_FULL}; "
+        f"worst file {worst[0]}); "
+        f"{native.card_single - single0} of {len(names) + len(full_names)} "
+        f"decodes one at a time; card {card}")
+    if d64["mean"] > TOL_FIXTURE["mean"] or d64["max"] > TOL_FIXTURE["max"]:
+        fail(f"data fixture: 64x64 mean |d| {d64['mean']:.4f} or max "
+             f"{d64['max']} above {TOL_FIXTURE}")
+    if d_full["max"] > TOL_FIXTURE_FULL:
+        fail(f"data fixture: full-resolution max |d| {d_full['max']} above "
+             f"{TOL_FIXTURE_FULL}: more than the IDCT's rounding")
+    # a damaged file among good ones raises on the card, naming it
+    data = native.read_files(paths[:3])
+    damaged = {"cut.jpg": data[1][:len(data[1]) // 2],
+               "headless.jpg": b"\xff\xd8" + bytes(range(255)) * 16
+               + b"\xff\xd9"}
+    for bad, content in damaged.items():
+        try:
+            native.decode([data[0], content, data[2]],
+                          [paths[0], bad, paths[2]], "cuda")
+            torch.cuda.synchronize()
+        except ValueError as e:
+            if bad not in str(e):
+                fail(f"data fixture: the error for {bad} does not name it: "
+                     f"{e}")
+            say(f"[data] damaged file on the card raises: {e}")
+        else:
+            fail(f"data fixture: {bad} decoded on the card without an error")
+    return {"full": d_full, "u8_64": d64}
+
+
+def make_tree(root: str) -> tuple:
+    """A class-subdirectory tree of TREE_IMAGES copies of the fixture JPEGs
+    (each copy a file of its own, so each costs a decode) and a flat
+    directory of FID_DIR_IMAGES of them."""
+    src_dir = os.path.join(FIXTURE, "jpeg", "c0")
+    files = sorted(glob.glob(os.path.join(src_dir, "*.jpg")))
+    tree = os.path.join(root, "tree")
+    fid_dir = os.path.join(root, "fid_dir")
+    for c in range(TREE_CLASSES):
+        os.makedirs(os.path.join(tree, f"c{c}"), exist_ok=True)
+    os.makedirs(fid_dir, exist_ok=True)
+    for i in range(TREE_IMAGES):
+        shutil.copyfile(files[i % len(files)],
+                        os.path.join(tree, f"c{i % TREE_CLASSES}",
+                                     f"{i:05d}.jpg"))
+        if i < FID_DIR_IMAGES:
+            shutil.copyfile(files[i % len(files)],
+                            os.path.join(fid_dir, f"{i:05d}.jpg"))
+    return tree, fid_dir
+
+
+def data_tree(tree: str, card: str) -> dict:
+    """Two epochs of the tree through get_data_loader on the card: epoch 1
+    decodes every image into the device cache, epoch 2 decodes none."""
+    import numpy as np
+    import torch
+
+    from disentangle_mlp_tpu_torch.config import Config
+    from disentangle_mlp_tpu_torch.data import native
+    from disentangle_mlp_tpu_torch.data.pipeline import get_data_loader
+
+    cfg = Config(name="smoke_tree", image_root_train=tree,
+                 batch_size_train=BATCH, synthetic_data=False,
+                 save_path=os.path.join(RUN_DIR, "%"),
+                 log_path=os.path.join(RUN_DIR, "%", "log")
+                 ).finalize(make_dirs=False)
+    train, _, _ = get_data_loader(cfg, "cuda")
+    src = train.source
+    if src._cache is None or src._cache.device.type != "cuda":
+        fail("data tree: the train stream has no decode cache on the card")
+    rates, decoded = [], []
+    for epoch in range(2):
+        before, card0 = src.decoded, native.card_decoded
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for x, y in train:
+            if (x.shape != (BATCH, 64, 64, 3) or x.dtype != torch.float32
+                    or x.device.type != "cuda"):
+                fail(f"data tree: batch {x.dtype} {tuple(x.shape)} on "
+                     f"{x.device}")
+            n += x.shape[0]
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+        decoded.append((src.decoded - before, native.card_decoded - card0))
+        if n != TREE_IMAGES:
+            fail(f"data tree: epoch {epoch + 1} fed {n} images")
+    lo, hi = float(x.min()), float(x.max())
+    if not (-1.0 <= lo <= hi <= 1.0):
+        fail(f"data tree: batch values in [{lo}, {hi}], not [-1, 1]")
+    if decoded[0] != (TREE_IMAGES, TREE_IMAGES) or not src._cached.all():
+        fail(f"data tree: epoch 1 decoded {decoded[0]} (source, nvJPEG), "
+             f"cache filled {int(src._cached.sum())} of {TREE_IMAGES}")
+    if decoded[1] != (0, 0):
+        fail(f"data tree: epoch 2 decoded {decoded[1]}, expected none")
+    # one batch's share of each part (host clock, ended by a synchronize)
+    paths = [p for p, _ in src.samples[:BATCH]]
+    ms = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms[key] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    # the files read on one thread (as the feed does) and on four, in turns
+    with ThreadPoolExecutor(4) as pool:
+        for key, reader in (
+                ("read_files", native.read_files),
+                ("read_files_4_threads", lambda ps: list(pool.map(
+                    native._read, ps))),
+                ("read_files_4_threads_2", lambda ps: list(pool.map(
+                    native._read, ps))),
+                ("read_files_2", native.read_files)):
+            datas = timed(key, lambda: reader(paths))
+    imgs = timed("nvjpeg_decode", lambda: native.decode(datas, paths, "cuda"))
+    timed("resize", lambda: native.resize_u8(imgs, 64))
+    # device time of one batch, uncached (decode and resize) and cached
+    # (gather and normalize): the feed's share of a step's device time
+    idx = np.arange(BATCH)
+    dev = {"uncached": device_ms(lambda: native.decode_resize(
+               datas, paths, 64, "cuda")),
+           "cached": device_ms(lambda: train._normalize(
+               src.load_batch_u8(idx)[0]))}
+    say(f"[data] tree of {TREE_IMAGES} JPEGs (178x218) through "
+        f"get_data_loader on the card, batch {BATCH}: epoch 1 (decode, "
+        f"resize, fill the cache) {rates[0]:.1f} img/s, {decoded[0][0]} "
+        f"decoded; epoch 2 (cached) {rates[1]:.1f} img/s, {decoded[1][0]} "
+        f"decoded; cache {src._cache.numel() / 1e6:.1f} MB on the card; one "
+        f"batch's parts, ms: {json.dumps(ms)}; device ms of one batch "
+        f"(profiler): {json.dumps(dev)}; card {card}")
+    del train, src
+    return {"epoch1_img_per_s": rates[0], "epoch2_img_per_s": rates[1],
+            "batch_ms": ms, "batch_device_ms": dev}
+
+
+def device_ms(fn) -> float:
+    """Device time of ``fn()``: the sum of the kernels' and copies' self
+    time in a torch.profiler trace."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()) / 1e3
+
+
+def train_folder(fl, pin, tree: str, fid_dir: str, card: str) -> tuple:
+    """The β-VAE-GAN through the trainer CLI on the JPEG tree, full default
+    width, 'observed', FOLDER_EPOCHS epochs, with FID against the directory
+    of images ``fid_dir`` (without FID when it is empty, which shows the
+    feed's rates without the FID's host work overlapping epoch 2); returns
+    the launches, fused_linear by path and the rates."""
+    from disentangle_mlp_tpu_torch.cli.train import main as train_main
+    from disentangle_mlp_tpu_torch.data import native
+    from disentangle_mlp_tpu_torch.train import loop
+    import torch
+
+    name = "smoke_folder" if fid_dir else "smoke_folder_nofid"
+    argv = ["--model", "betavaegan", "--name", name, "--device", "cuda",
+            "--epochs", str(FOLDER_EPOCHS), "--batch_size_train", str(BATCH),
+            "--dtype", "bfloat16", "--freeze_mode", "observed",
+            "--image_root_train", tree, "--synthetic_data", "False",
+            "--checkpoint_every", "0",
+            "--save_path", os.path.join(RUN_DIR, "%"),
+            "--log_path", os.path.join(RUN_DIR, "%", "log")]
+    if fid_dir:
+        argv += ["--calc_fid", "True", "--n_samples", str(N_SAMPLES),
+                 "--fid_save_samples", "True", "--fid_path_pretrained",
+                 fid_dir]
+    else:
+        argv += ["--calc_fid", "False"]
+    epochs = []
+    train_epoch = loop._Run.train_epoch
+
+    def timed_epoch(run, *a, **k):
+        torch.cuda.synchronize()
+        t0, dec0 = time.perf_counter(), run.train_loader.source.decoded
+        res = train_epoch(run, *a, **k)
+        torch.cuda.synchronize()
+        steps = len(run.train_loader)
+        epochs.append({"img_per_s": steps * BATCH / (time.perf_counter() - t0),
+                       "steps": steps,
+                       "decoded": run.train_loader.source.decoded - dec0})
+        return res
+
+    loop._Run.train_epoch = timed_epoch
+    card0 = native.card_decoded
+    try:
+        out, launches, by_path, wall = count_launches(
+            fl, pin, lambda: train_main(argv))
+    finally:
+        loop._Run.train_epoch = train_epoch
+    logs = glob.glob(os.path.join(RUN_DIR, name, "log", "log_*.json"))
+    if len(logs) != 1:
+        fail(f"train folder: {len(logs)} log files")
+    with open(logs[0]) as f:
+        records = json.load(f)["output"]
+    fids = [r["FID"] for r in records] if fid_dir else []
+    losses = [r[k] for r in records for k in ("Avg Eec Loss", "Avg Dnc Loss",
+                                              "Avg Dis Loss")]
+    losses += list(out["step_metrics"].values())
+    if len(records) != FOLDER_EPOCHS or not all(
+            isinstance(v, float) and math.isfinite(v) for v in fids + losses):
+        fail(f"train folder: records {records}, last step "
+             f"{out['step_metrics']}: losses and FIDs must be finite floats")
+    steps = sum(e["steps"] for e in epochs)
+    if len(epochs) != FOLDER_EPOCHS or steps != FOLDER_EPOCHS * TREE_IMAGES \
+            // BATCH:
+        fail(f"train folder: epochs {epochs}")
+    if sum(e["decoded"] for e in epochs[1:]):
+        fail(f"train folder: epochs after the first decoded images: {epochs}")
+    # the tree once (loop and warm-up share the work), the FID directory
+    # every epoch
+    card_decoded = native.card_decoded - card0
+    want = TREE_IMAGES + (FOLDER_EPOCHS * FID_DIR_IMAGES if fid_dir else 0)
+    if card_decoded != want:
+        fail(f"train folder: nvJPEG decoded {card_decoded} images, expected "
+             f"{want}")
+    shapes = [sh[:-1] + (sh[-1] * steps,) for sh in FUSED_LINEAR_SHAPES]
+    check_launches(fl, torch, f"train {name}", launches, by_path, shapes,
+                   FOLDER_EPOCHS if fid_dir else 0)
+    fid_note = (f"FID per epoch against a directory of {FID_DIR_IMAGES} "
+                f"JPEGs {[round(v, 4) for v in fids]}" if fid_dir
+                else "no FID")
+    say(f"[train] betavaegan folder{'' if fid_dir else ', no FID'}: "
+        f"{FOLDER_EPOCHS} epochs x "
+        f"{steps // FOLDER_EPOCHS} steps at batch {BATCH}, bf16, full width, "
+        f"observed, on {TREE_IMAGES} JPEGs; img/s per epoch (wall, all "
+        f"steps) {[round(e['img_per_s'], 1) for e in epochs]}, decoded per "
+        f"epoch in the loop {[e['decoded'] for e in epochs]} (nvJPEG "
+        f"{card_decoded} in all: the tree once, the FID directory each "
+        f"epoch); meter {out['images_per_sec']:.1f} img/s; {fid_note}; "
+        f"losses {json.dumps(records[-1])}; wall {wall:.1f} s incl. init; "
+        f"launches {json.dumps(launches)}, fused_linear by path "
+        f"{json.dumps(by_path)}; card {card}")
+    return launches, by_path, [e["img_per_s"] for e in epochs]
+
+
+def fid_dir_stats(out_dir: str, u8, stats_path: str, card: str) -> None:
+    """statistics_from_dir over the sample PNGs fid_split wrote against
+    the statistics of the same uint8 arrays in memory, pool3 in the same
+    batches (the directory's sorted order); then get_fid(dir, npz)."""
+    import numpy as np
+    import torch
+
+    from disentangle_mlp_tpu_torch.eval import fid
+
+    files = sorted(glob.glob(os.path.join(out_dir, "*.png")))
+    if len(files) != N_SAMPLES:
+        fail(f"fid dir: {len(files)} PNG files, expected {N_SAMPLES}")
+    order = [int(os.path.basename(f).split("_")[1]) for f in files]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mu, sigma = fid.statistics_from_dir(out_dir, device="cuda")
+    t_dir = time.perf_counter() - t0
+    x01 = torch.from_numpy(u8[order]).cuda().float() / 255.0
+    m2, s2 = fid.activation_statistics(fid.get_activations(x01))
+    d_mu = float(np.abs(mu - m2).max() / np.abs(m2).max())
+    d_sigma = float(np.abs(sigma - s2).max() / np.abs(s2).max())
+    score = fid.get_fid(out_dir, stats_path, device="cuda")
+    say(f"[fid] dir: statistics of {len(files)} sample PNGs in {t_dir:.2f} s "
+        f"vs the same uint8 arrays in memory: mu rel {d_mu:.3e}, sigma rel "
+        f"{d_sigma:.3e} (tol {TOL_DIR_STATS:.0e}); get_fid(dir, npz) "
+        f"{score:.4f}; card {card}")
+    if d_mu > TOL_DIR_STATS or d_sigma > TOL_DIR_STATS:
+        fail(f"fid dir: statistics differ from the in-memory ones: mu "
+             f"{d_mu:.3e}, sigma {d_sigma:.3e}")
+    if not math.isfinite(score):
+        fail(f"fid dir: get_fid {score} is not finite")
 
 
 def main() -> None:
@@ -854,12 +1226,13 @@ def main() -> None:
 
     # 2. build and check
     t0 = time.perf_counter()
-    libs = _build.build_all(["fused_linear", "per_image_normalize"])
+    libs = _build.build_all(["fused_linear", "per_image_normalize",
+                             "nvjpeg_decode"])
     say(f"[build] {', '.join(str(p.name) for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc a source, in parallel; "
         f"flags {' '.join(_build.NVCC_FLAGS)})")
     for name, log in _build.build_logs.items():
-        say(f"[build] ptxas {name}: {ptxas_summary(log)}")
+        say(f"[build] ptxas {name}: {ptxas_summary(log) or 'no kernels'}")
     worst = check_fused_linear(fl, torch)
     norm_err = check_per_image_normalize(pin, torch)
 
@@ -882,17 +1255,27 @@ def main() -> None:
                       stats_path)]
         # 6. eval: sweep the intent run's checkpoint
         runs.append(evaluate(fl, pin, runs[1][2], stats_path, card))
+        # 7. the FID phase, part by part
+        split_dir, split_u8 = fid_split(stats_path, card)
+        # 8. data: the decoder, the fixture, a JPEG tree two epochs
+        data_decoder(card)
+        data_fixture(card)
+        tree, fid_dir = make_tree(RUN_DIR)
+        data_tree(tree, card)
+        # 9. train on the tree, FID against a directory; then without FID
+        runs.append(train_folder(fl, pin, tree, fid_dir, card))
+        runs.append(train_folder(fl, pin, tree, "", card))
         launches = {k: sum(r[0][k] for r in runs) for k in runs[0][0]}
         by_path = {}
         for paths in (r[1] for r in runs):
             for k, v in paths.items():
                 by_path[k] = by_path.get(k, 0) + v
-        # 7. the FID phase, part by part
-        fid_split(stats_path, card)
+        # 10. FID statistics of a directory
+        fid_dir_stats(split_dir, split_u8, stats_path, card)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
 
-    # 8. report
+    # 11. report
     by_role = {r["role"]: r for r in rows}
 
     def step(model: str) -> dict:

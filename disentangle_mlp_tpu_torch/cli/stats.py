@@ -4,11 +4,15 @@ port's InceptionV3 and writes the ``.npz`` {mu, sigma} that
 ``--fid_path_pretrained`` reads:
 
     python -m disentangle_mlp_tpu_torch.cli.stats --name stats \
-        --synthetic_data True --stats_out fid_stats.npz --max_images 50000 \
-        [--device cuda|cpu]
+        --image_root_train <tree> --stats_out fid_stats.npz \
+        --max_images 50000 [--device cuda|cpu]
 
-The port's data feed is synthetic-only for now (image folders are not yet
-ported), so this builds statistics of the synthetic set.
+The training set is the trainer's: an image folder (``--image_root_train
+<tree>``, decoded and resized on ``--device``; ``--dataset`` picks the
+normalization) or, with ``--synthetic_data True``, the synthetic stream.
+Statistics of a plain directory of images need no file:
+``--fid_path_pretrained <dir>`` computes them (eval/fid.py
+``statistics_from_dir``).
 """
 
 from __future__ import annotations

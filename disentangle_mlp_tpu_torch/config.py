@@ -134,8 +134,9 @@ class Config:
     # False drops ONLY the files (the FID score is computed in memory
     # either way).
     fid_save_samples: bool = True
-    # Decoded-image RAM cache for folder datasets ("auto"/"on"/"off"); the
-    # port has no folder dataset yet.
+    # uint8 decode cache of a folder dataset's train stream, on the run's
+    # device ("auto"/"on"/"off"; "auto" = when it fits the global
+    # DMT_DECODE_CACHE_BYTES budget, default 4 GiB; data/pipeline.py).
     cache_decoded: str = "auto"
     # torchvision resnet18 checkpoint for the birds encoder (the reference
     # uses resnet18(pretrained=True), models/model.py:19); birds family

@@ -9,15 +9,18 @@
   hand-written ``per_image_normalize`` kernel (ops/image_ops.py);
 - tr√(Σ₁Σ₂) is computed on the host in float64 with symmetric
   eigendecompositions, exactly as in the JAX package;
-- reference statistics are ``.npz`` archives holding ``mu`` and ``sigma``.
-  Statistics of an image directory need an image decoder, which the port
-  does not have yet: such a path raises ``NotImplementedError``.
+- reference statistics are ``.npz`` archives holding ``mu`` and ``sigma``,
+  or a directory of images, whose statistics are computed on the way
+  (``statistics_from_dir``: JPEGs decoded on the device by data/native.py,
+  PNGs by utils/image_io.read_png); ``get_fid`` scores one against the
+  other, the reference's public signature.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+import pathlib
 import zipfile
 from typing import Optional, Tuple, Union
 
@@ -223,23 +226,67 @@ def load_stats_npz(path: str) -> Tuple[np.ndarray, np.ndarray]:
                 f"{sorted(f.files)})") from e
 
 
-def statistics_from_dir(path: str, batch_size: int = FID_BATCH):
-    raise NotImplementedError(
-        f"FID statistics of an image directory ({path!r}) are not yet "
-        f"ported (they need an image decoder); pass a .npz stats file "
-        f"(python -m disentangle_mlp_tpu_torch.cli.stats writes one)")
+def statistics_from_dir(path: str, batch_size: int = FID_BATCH,
+                        device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """Directory of *.jpg, then *.png files (each sorted) → (μ, Σ), as the
+    JAX package computes them (its eval/fid.py:276-316; reference
+    fid.py:68-105): each image at its native resolution, divided by 255,
+    ``batch_size`` images at a time through pool3 on ``device``, so memory
+    stays O(batch + d²) whatever the directory's size. μ and Σ come from
+    float64 sums Σx and Σxxᵀ; Σ is the ddof=1 covariance of
+    :func:`activation_statistics` to float64 rounding. JPEGs are decoded on
+    ``device`` (nvJPEG on the card, libjpeg on the CPU), PNGs on the host;
+    the images of one batch must share a size."""
+    from ..data import native
+
+    files = sorted(pathlib.Path(path).glob("*.jpg")) + \
+        sorted(pathlib.Path(path).glob("*.png"))
+    if not files:
+        raise FileNotFoundError(f"no *.jpg/*.png under {path!r}")
+    n = len(files)
+    if n < 2:
+        raise ValueError(f"need ≥2 images for covariance, got {n}")
+    s = np.zeros(FEATURE_DIM, np.float64)
+    ss = np.zeros((FEATURE_DIM, FEATURE_DIM), np.float64)
+    for start in range(0, n, batch_size):
+        names = [str(f) for f in files[start:start + batch_size]]
+        imgs = native.decode(native.read_files(names), names, device)
+        if len({tuple(im.shape) for im in imgs}) > 1:
+            raise ValueError(f"{path!r}: images of different sizes in one "
+                             f"batch of {batch_size}: "
+                             f"{sorted({tuple(im.shape) for im in imgs})}")
+        x01 = torch.stack(imgs).to(torch.float32) / 255.0
+        acts = get_activations(x01, batch_size=batch_size).astype(np.float64)
+        s += acts.sum(axis=0)
+        ss += acts.T @ acts
+    mu = s / n
+    sigma = (ss - n * np.outer(mu, mu)) / (n - 1)
+    return mu, sigma
 
 
-def _handle_path(path: str) -> Tuple[np.ndarray, np.ndarray]:
+def _handle_path(path: str, device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """Reference statistics: a .npz file, or those of an image directory
+    computed on ``device``."""
     if path.endswith(".npz"):
         return load_stats_npz(path)
-    return statistics_from_dir(path)
+    return statistics_from_dir(path, device=device)
+
+
+def get_fid(path_data: str, path_pretrained: str, device="cuda") -> float:
+    """The reference's public signature (fid.py:320-323; JAX package
+    eval/fid.py:325-331): FID between a directory of images (or a .npz of
+    statistics) and the reference statistics (or a directory of images)."""
+    m1, s1 = _handle_path(path_data, device)
+    m2, s2 = _handle_path(path_pretrained, device)
+    return frechet_distance(m1, s1, m2, s2)
 
 
 def get_fid_from_samples(samples_pm1: Images, path_pretrained: str) -> float:
     """Score decoded samples (NHWC, any range; per-image normalized here)
     against reference stats, in memory."""
-    m2, s2 = _handle_path(path_pretrained)
+    device = samples_pm1.device if isinstance(samples_pm1, torch.Tensor) \
+        else "cuda"
+    m2, s2 = _handle_path(path_pretrained, device)
     acts = get_activations(per_image_normalize(samples_pm1))
     sqrt2 = (cached_sqrt_sigma2(path_pretrained, s2)
              if acts.shape[0] >= FEATURE_DIM else None)

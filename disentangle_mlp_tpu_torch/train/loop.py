@@ -20,9 +20,12 @@ record are emitted when the next epoch ends (the last at loop exit).
 Values and record order are those of inline scoring; DMT_ASYNC_FID=0
 scores inline.
 
-Not ported yet, and refused rather than skipped: datasets other than
-celebA (data/pipeline.py), FID statistics of an image directory,
-profiling and multi-device meshes.
+The data are an image folder (``--image_root_train``: JPEGs decoded and
+resized on the run's device, the uint8 cache on that device, filled ahead
+by the decode warm-up) or the synthetic stream; the reference statistics
+a ``.npz`` file or a directory of images. Not ported yet, and refused
+rather than skipped: the birds and mnist family models (their data
+loaders are ported), profiling and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -173,7 +176,7 @@ def _maybe_fid_async(cfg: Config, decode_fn: Callable, epoch: int,
     if not cfg.calc_fid:
         return _instant_na()
     try:
-        m2, s2 = fid_mod._handle_path(cfg.fid_path_pretrained)
+        m2, s2 = fid_mod._handle_path(cfg.fid_path_pretrained, device)
         if z is None:
             z = _sample_latents(cfg.seed + epoch, cfg.n_samples,
                                 cfg.n_hidden, device)
@@ -249,11 +252,13 @@ class _EpochEmitter:
 
 
 def _refuse_unported(cfg: Config) -> None:
-    if cfg.calc_fid and not cfg.fid_path_pretrained.endswith(".npz"):
+    if cfg.dataset in ("birds", "mnist"):
         raise NotImplementedError(
-            f"FID statistics of an image directory "
-            f"(--fid_path_pretrained {cfg.fid_path_pretrained!r}) are not "
-            f"yet ported; pass a .npz stats file")
+            f"--dataset {cfg.dataset} trains a family model "
+            f"(models/{cfg.dataset}.py through train/families.py), and the "
+            f"family models are not ported yet (ROADMAP queue 1, item 7): "
+            f"run_family is not yet ported, though get_data_loader serves "
+            f"the {cfg.dataset} data")
     if cfg.profile_dir:
         raise NotImplementedError("--profile_dir is not yet ported")
     if cfg.mesh_shape > 1:
@@ -271,7 +276,11 @@ class _Run:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.train_loader, _, self.test_loader = get_data_loader(
-            cfg, self.device)  # refuses the datasets not ported yet
+            cfg, self.device)
+        if cfg.to_train:
+            # decode epoch 1 into the cache ahead of the steps, as the JAX
+            # loops do (a no-op without a cache)
+            self.train_loader.start_cache_warmup()
         self.logger = logger or Logger(cfg.log_path, cfg)
         self.exp = make(cfg, self.device)
         self.start_epoch = 0

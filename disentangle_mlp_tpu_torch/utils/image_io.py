@@ -6,7 +6,9 @@
 [0, 255]; grids are rows of ``nrow`` with 2-pixel padding. PNGs are
 written by :func:`write_png`, a small encoder on the standard library's
 ``zlib`` (8-bit grey or RGB, filter 0, no interlace), so the files need no
-imaging package.
+imaging package, and read by :func:`read_png` (8-bit, every colour type and
+row filter, no interlace), which serves PNG folder trees and FID
+statistics of a directory of PNG files.
 """
 
 from __future__ import annotations
@@ -45,6 +47,111 @@ def write_png(path: str, arr: np.ndarray) -> None:
         f.write(PNG_SIGNATURE + _chunk(b"IHDR", header)
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
                 + _chunk(b"IEND", b""))
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read a PNG file as an (H, W, 3) uint8 RGB array."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int, name: str
+              ) -> np.ndarray:
+    """Undo the PNG row filters (None, Sub, Up, Average, Paeth) of ``h``
+    rows of ``stride`` bytes; ``bpp`` bytes a pixel."""
+    if len(raw) != h * (stride + 1):
+        raise ValueError(f"{name}: PNG image data holds {len(raw)} bytes, "
+                         f"expected {h * (stride + 1)}")
+    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, line = rows[y, 0], rows[y, 1:]
+        if kind == 0:
+            cur = line.copy()
+        elif kind == 1:  # Sub: a running sum along each byte lane, mod 256
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif kind == 2:  # Up
+            cur = line + prior
+        elif kind in (3, 4):  # Average, Paeth: left to right
+            cur = np.zeros(stride, np.int64)
+            up = prior.astype(np.int64)
+            ln = line.astype(np.int64)
+            for i in range(stride):
+                left = cur[i - bpp] if i >= bpp else 0
+                if kind == 3:
+                    pred = (left + up[i]) >> 1
+                else:
+                    pred = _paeth(left, up[i], up[i - bpp] if i >= bpp else 0)
+                cur[i] = (ln[i] + pred) & 0xFF
+            cur = cur.astype(np.uint8)
+        else:
+            raise ValueError(f"{name}: unknown PNG row filter {kind}")
+        out[y] = cur
+        prior = cur
+    return out
+
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """PNG bytes → (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
+    it: grey replicated, palette looked up (its transparency dropped),
+    alpha dropped. 8-bit colour types 0, 2, 3, 4 and 6, non-interlaced;
+    anything else, or a damaged file, raises ValueError naming ``name``."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{name}: not a PNG file")
+    pos, header, palette, idat = 8, None, None, []
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError(f"{name}: truncated PNG chunk {kind!r}")
+        if struct.unpack(">I", crc)[0] != zlib.crc32(kind + body) & 0xFFFFFFFF:
+            raise ValueError(f"{name}: PNG chunk {kind!r} fails its CRC")
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    else:
+        raise ValueError(f"{name}: PNG file ends before its IEND chunk")
+    if header is None:
+        raise ValueError(f"{name}: PNG file without an IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
+    if depth != 8 or channels is None or interlace != 0:
+        raise ValueError(f"{name}: PNG of bit depth {depth}, colour type "
+                         f"{ctype}, interlace {interlace} is not read (8-bit "
+                         f"colour types 0, 2, 3, 4, 6 without interlace)")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{name}: palette PNG without a PLTE chunk")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"{name}: PNG image data: {e}") from e
+    px = _unfilter(raw, h, w * channels, channels, name).reshape(
+        h, w, channels)
+    if ctype == 3:
+        lut = np.zeros((256, 3), np.uint8)  # indices past the palette: black
+        lut[:len(palette)] = palette[:256]
+        return lut[px[..., 0]]
+    if ctype in (0, 4):
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])
 
 
 def _to_uint8(img: np.ndarray, normalize: bool = True) -> np.ndarray:

@@ -207,9 +207,12 @@ def test_port_stats_file_errors(tmp_path):
     np.savez(good, mu=np.arange(3.0), sigma=np.eye(3))
     mu, sigma = port_fid._handle_path(good)
     np.testing.assert_array_equal(mu, np.arange(3.0))
-    # statistics of an image directory need an image decoder: not ported
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_fid._handle_path(str(tmp_path))
+    # a directory is read as images (statistics_from_dir): one without any
+    # is a missing asset, as for the JAX package
+    with pytest.raises(FileNotFoundError, match="no \\*.jpg/\\*.png"):
+        port_fid._handle_path(str(tmp_path), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        jax_fid._handle_path(str(tmp_path))
 
 
 def test_port_compute_dataset_statistics_matches_jax(tmp_path,

@@ -111,8 +111,7 @@ def test_port_checkpoint_rotation_and_resume(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra, error, match", [
-    (["--calc_fid", "True", "--fid_path_pretrained", "stats_dir"],
-     NotImplementedError, "not yet ported"),
+    (["--dataset", "birds"], NotImplementedError, "not yet ported"),
     (["--dataset", "mnist"], NotImplementedError, "not ported yet"),
     (["--profile_dir", "x"], NotImplementedError, "not yet ported"),
     (["--mesh_shape", "2"], NotImplementedError, "not yet ported"),
@@ -120,6 +119,34 @@ def test_port_checkpoint_rotation_and_resume(tmp_path, capsys):
 def test_port_trainer_refuses_unported_paths(tmp_path, extra, error, match):
     with pytest.raises(error, match=match):
         cli_train.main(_argv(tmp_path, *extra))
+
+
+def test_port_trainer_scores_fid_against_a_directory_of_images(tmp_path,
+                                                               capsys):
+    """--fid_path_pretrained naming a directory: its statistics are computed
+    (eval/fid.py statistics_from_dir) and every epoch gets a finite FID;
+    an empty directory degrades to 'N/A' like a missing .npz."""
+    from disentangle_mlp_tpu_torch.utils.image_io import write_png
+
+    stats = tmp_path / "stats_dir"
+    stats.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        write_png(str(stats / f"{i}.png"),
+                  rng.integers(0, 256, (IMG, IMG, 3), dtype=np.uint8))
+    out = cli_train.main(_argv(tmp_path, "--calc_fid", "True",
+                               "--n_samples", "3",
+                               "--fid_path_pretrained", str(stats),
+                               "--checkpoint_every", "0"))
+    assert isinstance(out["FID"], float) and np.isfinite(out["FID"])
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    out = cli_train.main(_argv(tmp_path, "--calc_fid", "True",
+                               "--n_samples", "3", "--name", "e",
+                               "--fid_path_pretrained", str(empty),
+                               "--checkpoint_every", "0"))
+    assert out["FID"] == "N/A"
+    assert "[fid] skipped: no *.jpg/*.png" in capsys.readouterr().out
 
 
 def test_port_trainer_defaults_to_cuda_and_never_falls_back(tmp_path,
