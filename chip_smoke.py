@@ -15,13 +15,15 @@ Phases, each fatal on failure:
    bit-identical) and gradient at the shapes the full-width training step
    gives it, forward at the FID decode's and at shapes on each path's
    edges, and at an odd shape with no tile multiples;
-   ``per_image_normalize`` at the FID path's (1000, 64, 64, 3) in the
-   decoder's layout and contiguous, at an odd shape, on a constant image and
-   on an image holding a NaN;
+   ``per_image_normalize`` at the CelebA FID path's (1000, 64, 64, 3) and
+   the birds FID path's (1000, 128, 128, 3) in the decoder's layout and
+   contiguous, at an odd shape, on a constant image and on an image holding
+   a NaN;
 3. time each kernel at its main-path shapes beside its bound, its plain
    version and, where one exists, one PyTorch library call computing the
    same function (for ``fused_linear`` two: ``torch.addmm`` on bf16 copies
    made beforehand, and with the casts from the port's float32 weight);
+   ``per_image_normalize`` at both FID shapes, with its device-only time;
 4. FID set-up: reference statistics of 2048 synthetic images through the
    port's ``compute_dataset_statistics``; those images scored against their
    own statistics (|FID| ≈ 0); pool3 on the card against pool3 on the CPU;
@@ -38,9 +40,17 @@ Phases, each fatal on failure:
    reconstruction, originals and sample grids), its launches checked the
    same way, and the checkpoint restored into a new experiment gives back
    the saved states bit for bit;
+   the model families through the trainer CLI at the JAX package's default
+   width: birds (batch 256, 128×128×3, n_hidden 128, bf16) 2 epochs of 2
+   synthetic steps, FID each epoch over 1000 samples against phase 4's
+   statistics, its checkpoint saved; MNIST (batch 256, 28×28×1, latent
+   7·7·4) 2 epochs of an idx pair of 4096 seeded images written here, FID
+   'N/A'. Losses and FIDs finite, launches 0 fused_linear (every family
+   dense layer is float32) and 2 per_image_normalize per birds FID epoch;
 7. the FID phase once more, timed part by part (decode, normalize, pool3,
    Fréchet, PNG writes), with the decoder's BatchNorm running statistics
-   checked unchanged by the sampling decode;
+   checked unchanged by the sampling decode; the same for the birds
+   generator at 128×128;
 8. data: the JPEG decoder the card path uses (nvJPEG, its version and
    backend); the committed JPEG fixture decoded and resized on the card
    against the JAX package's 64×64 output for the same files (and PIL's
@@ -53,11 +63,17 @@ Phases, each fatal on failure:
    default width, 'observed', 2 epochs, FID each epoch against a
    directory of 512 of those JPEGs; losses and FIDs finite, launches
    checked as in phase 5, img/s per epoch; then the same 2 epochs without
-   FID (the feed's rates without the FID's host work beside epoch 2);
+   FID (the feed's rates without the FID's host work beside epoch 2); then
+   the birds family one epoch of the tree at 128×128 with ImageNet's
+   normalization, no FID;
 10. FID statistics of a directory: ``statistics_from_dir`` over the 1000
    sample PNGs phase 7 wrote against statistics of the same uint8 arrays
    in memory, and ``get_fid`` of that directory against the .npz;
-11. print the ``kernels`` JSON line, the card line and, last, the ok line.
+11. the birds and MNIST steps through ``cli/profile_step.py``: ms/step by
+   CUDA events, device busy time, idle share, time by kernel category; the
+   colour fixture decoded on the card (a CMYK, a YCCK, a 4:4:0 and a 4:1:1
+   file) against the host decode, max |Δ| ≤ 6;
+12. print the ``kernels`` JSON line, the card line and, last, the ok line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 package is missing.
@@ -156,9 +172,18 @@ NORM_SHAPE = (N_SAMPLES, 64, 64, 3)
 NORM_LAUNCHES_PER_EPOCH = 2
 # the FID decode's one extra fused_linear launch: preprocess, 1000×128→16384
 FID_FUSED_LINEAR_LAUNCHES = 1
+# ... and on the birds FID path (train/loop.py run_family): 1000 decoded
+# 128×128 samples, twice per FID epoch as well
+BIRDS_IMG = 128
+BIRDS_NORM_SHAPE = (N_SAMPLES, BIRDS_IMG, BIRDS_IMG, 3)
 # Both sides compute (x − lo)·(1/range) in float32 from the same min and
 # max, and the outputs lie in [0, 1].
 TOL_NORM = 1e-6
+# The families' runs: epochs, synthetic birds steps an epoch, and the MNIST
+# idx images (for MNIST's 60,000)
+FAMILY_EPOCHS = 2
+BIRDS_STEPS = 2
+MNIST_IMAGES = 16 * BATCH
 # FID statistics of this many synthetic images, and the self-FID of those
 # images against them. With equal activations only float64 rounding of the
 # eigen math remains; its largest share is the square roots of the
@@ -512,6 +537,12 @@ def check_per_image_normalize(pin, torch) -> float:
         # 786 KB a float32 image: above the shared-memory stage, read twice
         check(f"large (2, 256, 256, 3) {name}",
               images(2, 256, 256, 3, dtype, False))
+    # the birds FID path's shape: the decoder's bf16 (96 KB staged an
+    # image), and float32 contiguous (192 KB, the largest stage it takes)
+    for dtype, nchw in ((torch.bfloat16, True), (torch.float32, False)):
+        layout = "NHWC view of NCHW" if nchw else "contiguous NHWC"
+        check(f"birds {BIRDS_NORM_SHAPE} {str(dtype)[6:]} {layout}",
+              images(*BIRDS_NORM_SHAPE, dtype, nchw))
     x = images(4, h, w, c, torch.float32, False)
     x[1] = 0.25
     y = check("constant image 1 of 4", x)
@@ -527,29 +558,48 @@ def check_per_image_normalize(pin, torch) -> float:
     return worst
 
 
-def time_per_image_normalize(pin, torch) -> dict:
-    """Kernel and plain times at the FID path's input: the decoder's bf16
-    NHWC view of NCHW. No single PyTorch call computes this function, so
-    there is no library time."""
+def time_per_image_normalize(pin, torch, card: str) -> list:
+    """Kernel (back-to-back launches, and device-only) and plain times at
+    the FID paths' inputs: the decoder's bf16 NHWC view of NCHW at the
+    CelebA and the birds shapes, and float32 contiguous at the birds shape.
+    No single PyTorch call computes this function, so there is no library
+    time."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    n, h, w, c = NORM_SHAPE
-    x = torch.tanh(torch.randn((n, c, h, w), device=dev, generator=gen))
-    x = x.bfloat16().permute(0, 2, 3, 1)
-    kernel_ms = time_ms(lambda: pin.per_image_normalize(x))
-    plain_ms = time_ms(lambda: pin.per_image_normalize_plain(x))
-    nbytes = x.numel() * (x.element_size() + 4)  # bf16 in, float32 out
-    flops = 4 * x.numel()  # min, max, subtract, multiply
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    row = {"shape": list(NORM_SHAPE), "x_dtype": "bfloat16",
-           "layout": "NHWC view of NCHW", "bytes": nbytes, "flops": flops,
-           "ms": kernel_ms, "plain_ms": plain_ms,
-           "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    say(f"[time] per_image_normalize {NORM_SHAPE} bf16: kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); no library call")
-    return row
+    rows = []
+    for shape, dtype, nchw in ((NORM_SHAPE, torch.bfloat16, True),
+                               (BIRDS_NORM_SHAPE, torch.bfloat16, True),
+                               (BIRDS_NORM_SHAPE, torch.float32, False)):
+        n, h, w, c = shape
+        if nchw:
+            x = torch.tanh(torch.randn((n, c, h, w), device=dev,
+                                       generator=gen)).to(dtype)
+            x = x.permute(0, 2, 3, 1)
+        else:
+            x = torch.tanh(torch.randn(shape, device=dev,
+                                       generator=gen)).to(dtype)
+        kernel_ms = time_ms(lambda: pin.per_image_normalize(x))
+        device_ms = time_device_ms(lambda: pin.per_image_normalize(x))
+        plain_ms = time_ms(lambda: pin.per_image_normalize_plain(x))
+        nbytes = x.numel() * (x.element_size() + 4)  # x in, float32 out
+        flops = 4 * x.numel()  # min, max, subtract, multiply
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        layout = "NHWC view of NCHW" if nchw else "contiguous NHWC"
+        dt = str(dtype).replace("torch.", "")
+        rows.append({"shape": list(shape), "x_dtype": dt, "layout": layout,
+                     "bytes": nbytes, "flops": flops, "ms": kernel_ms,
+                     "device_ms": device_ms, "plain_ms": plain_ms,
+                     "bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"})
+        r = rows[-1]
+        say(f"[time] per_image_normalize {shape} {dt} {layout}: kernel "
+            f"{kernel_ms:.4f} ms, device only {device_ms:.4f} ms "
+            f"({nbytes / (device_ms * 1e-3) / 1e12:.2f} TB/s), plain "
+            f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); no library call; card {card}")
+        del x
+    return rows
 
 
 def fid_setup(torch) -> str:
@@ -812,11 +862,12 @@ def evaluate(fl, pin, saved: dict, stats_path: str, card: str) -> tuple:
     return launches, by_path
 
 
-def fid_split(stats_path: str, card: str) -> dict:
+def fid_split(stats_path: str, card: str, dataset: str = "celebA") -> tuple:
     """The per-epoch FID phase once more, each part timed on its own
     (host clock around work ended by a synchronize), and the decoder's
     BatchNorm running statistics checked unchanged by the sampling
-    decode."""
+    decode: the β-VAE-GAN's decoder at 64×64, or the birds generator at
+    128×128 (``dataset="birds"``)."""
     import torch
 
     from disentangle_mlp_tpu_torch.config import Config
@@ -824,14 +875,22 @@ def fid_split(stats_path: str, card: str) -> dict:
     from disentangle_mlp_tpu_torch.eval.samples import (_sample_latents,
                                                         write_sample_files)
     from disentangle_mlp_tpu_torch.models.layers import BatchNorm
+    from disentangle_mlp_tpu_torch.train.families import FamilyExperiment
     from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
 
-    cfg = Config(name="smoke_fid")  # full default width, bf16
-    exp = VAEGANExperiment(cfg, "cuda")
-    bns = [m for m in exp.vae.decoder.modules() if isinstance(m, BatchNorm)]
+    if dataset == "birds":  # the JAX defaults, bf16
+        cfg = Config(name="smoke_fid_birds", dataset="birds",
+                     img_size=BIRDS_IMG)
+        exp = FamilyExperiment(cfg, "cuda")
+        decoder, shape = exp.vae.generator, BIRDS_NORM_SHAPE
+    else:
+        cfg = Config(name="smoke_fid")  # full default width, bf16
+        exp = VAEGANExperiment(cfg, "cuda")
+        decoder, shape = exp.vae.decoder, NORM_SHAPE
+    bns = [m for m in decoder.modules() if isinstance(m, BatchNorm)]
     before = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
     mu2, s2 = fid.load_stats_npz(stats_path)
-    out_dir = os.path.join(RUN_DIR, "fid_split")
+    out_dir = os.path.join(RUN_DIR, f"fid_split_{dataset}")
     os.makedirs(out_dir, exist_ok=True)
     ms = {}
 
@@ -849,7 +908,7 @@ def fid_split(stats_path: str, card: str) -> dict:
                for m, (a, b) in zip(bns, before)):
         fail("fid: the sampling decode changed the decoder's BatchNorm "
              "running statistics")
-    if out.shape != NORM_SHAPE or out.dtype != torch.bfloat16:
+    if out.shape != shape or out.dtype != torch.bfloat16:
         fail(f"fid: decode gave {out.dtype} {tuple(out.shape)}")
     imgs = timed("normalize", lambda: fid.per_image_normalize(out))
     acts = timed("pool3", lambda: fid.get_activations(imgs))
@@ -860,7 +919,8 @@ def fid_split(stats_path: str, card: str) -> dict:
     if not math.isfinite(score):
         fail(f"fid: score {score} is not finite")
     ms["total"] = sum(ms.values())
-    say(f"[fid] phase split over {N_SAMPLES} samples, ms (BatchNorm running "
+    say(f"[fid] phase split{' birds' if dataset == 'birds' else ''} over "
+        f"{N_SAMPLES} samples {shape[1]}x{shape[2]}, ms (BatchNorm running "
         f"statistics unchanged; FID {score:.4f}; card {card}): "
         f"{json.dumps(ms)}")
     return out_dir, u8
@@ -951,6 +1011,40 @@ def data_fixture(card: str) -> dict:
         else:
             fail(f"data fixture: {bad} decoded on the card without an error")
     return {"full": d_full, "u8_64": d64}
+
+
+def data_color(card: str) -> dict:
+    """The colour fixture on the card against the host decode (libjpeg;
+    PIL's for CMYK and YCCK) at full resolution: a CMYK, a YCCK, a 4:4:0
+    and a 4:1:1 file."""
+    import numpy as np
+    import torch
+
+    from disentangle_mlp_tpu_torch.data import native
+
+    with np.load(os.path.join(FIXTURE, "expected_color.npz")) as f:
+        cnames, cfull = list(f["names"]), f["full"]
+    cpaths = [os.path.join(FIXTURE, "jpeg_color", n) for n in cnames]
+    single0 = native.card_single
+    cdec = native.decode(native.read_files(cpaths), cpaths, "cuda")
+    torch.cuda.synchronize()
+    color = {}
+    for n, g, want in zip(cnames, cdec, cfull):
+        if tuple(g.shape) != want.shape:
+            fail(f"data colour: {n} decoded to {tuple(g.shape)} on the "
+                 f"card, expected {want.shape}")
+        color[n] = _u8_diff(g.cpu().numpy(), want)
+    say(f"[data] colour fixture on the card vs the host decode (libjpeg; "
+        f"PIL's for CMYK and YCCK), full resolution: "
+        f"{json.dumps(color)} (tol max {TOL_FIXTURE_FULL}); "
+        f"{native.card_single - single0} of {len(cnames)} decodes one at a "
+        f"time; card {card}")
+    bad = {n: d["max"] for n, d in color.items()
+           if d["max"] > TOL_FIXTURE_FULL}
+    if bad:
+        fail(f"data colour: files above the full-resolution bar: "
+             f"{bad}")
+    return color
 
 
 def make_tree(root: str) -> tuple:
@@ -1167,6 +1261,138 @@ def train_folder(fl, pin, tree: str, fid_dir: str, card: str) -> tuple:
     return launches, by_path, [e["img_per_s"] for e in epochs]
 
 
+def write_mnist(root: str) -> str:
+    """An MNIST idx pair of MNIST_IMAGES seeded 28×28 images (smooth blobs
+    on black, like digits' strokes) and labels under ``root``."""
+    import struct
+
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:28, 0:28]
+    c = rng.uniform(6, 22, (MNIST_IMAGES, 3, 2))
+    r = rng.uniform(2, 5, (MNIST_IMAGES, 3))
+    d2 = ((yy[None, None] - c[..., 0, None, None]) ** 2
+          + (xx[None, None] - c[..., 1, None, None]) ** 2)
+    imgs = (255 * np.exp(-d2 / (2 * r[..., None, None] ** 2)).max(1))
+    imgs = imgs.clip(0, 255).astype(np.uint8)
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "train-images-idx3-ubyte"), "wb") as f:
+        f.write(struct.pack(">HBB3I", 0, 8, 3, MNIST_IMAGES, 28, 28)
+                + imgs.tobytes())
+    with open(os.path.join(root, "train-labels-idx1-ubyte"), "wb") as f:
+        f.write(struct.pack(">HBBI", 0, 8, 1, MNIST_IMAGES)
+                + rng.integers(0, 10, MNIST_IMAGES, dtype=np.uint8).tobytes())
+    return root
+
+
+def train_family(fl, pin, label: str, flags: list, epochs: int,
+                 fid: bool, save: bool, card: str) -> tuple:
+    """A family through the trainer CLI at full default width (batch 256,
+    the JAX defaults), ``epochs`` epochs with ``flags``; every loss finite,
+    each epoch's FID a finite float (``fid``) or 'N/A', the last checkpoint
+    saved (``save``); launches 0 fused_linear and 2 per_image_normalize per
+    FID epoch. Returns the launches, fused_linear by path and img/s per
+    epoch."""
+    from disentangle_mlp_tpu_torch.cli.train import main as train_main
+    from disentangle_mlp_tpu_torch.train import loop
+    import torch
+
+    name = f"smoke_{label.replace(' ', '_')}"
+    argv = ["--name", name, "--device", "cuda", "--epochs", str(epochs),
+            "--batch_size_train", str(BATCH), "--dtype", "bfloat16",
+            "--checkpoint_every", "1" if save else "0",
+            "--keep_checkpoints", "1",
+            "--save_path", os.path.join(RUN_DIR, "%"),
+            "--log_path", os.path.join(RUN_DIR, "%", "log"), *flags]
+    epochs_seen = []
+    train_epoch = loop._Run.train_epoch
+
+    def timed_epoch(run, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_epoch(run, *a, **k)
+        torch.cuda.synchronize()
+        steps = len(run.train_loader)
+        epochs_seen.append({"steps": steps, "img_per_s": steps * BATCH
+                            / (time.perf_counter() - t0)})
+        return res
+
+    loop._Run.train_epoch = timed_epoch
+    try:
+        out, launches, by_path, wall = count_launches(
+            fl, pin, lambda: train_main(argv))
+    finally:
+        loop._Run.train_epoch = train_epoch
+    logs = glob.glob(os.path.join(RUN_DIR, name, "log", "log_*.json"))
+    if len(logs) != 1:
+        fail(f"train {label}: {len(logs)} log files")
+    with open(logs[0]) as f:
+        records = json.load(f)["output"]
+    losses = [r[k] for r in records for k in ("Avg Loss", "Avg Recon Loss")]
+    losses += list(out["step_metrics"].values())
+    fids = [r["FID"] for r in records]
+    fids_ok = all(isinstance(v, float) and math.isfinite(v) for v in fids) \
+        if fid else fids == ["N/A"] * epochs
+    if (len(records) != epochs or not fids_ok or not all(
+            isinstance(v, float) and math.isfinite(v) for v in losses)):
+        fail(f"train {label}: records {records}, last step "
+             f"{out['step_metrics']}: losses must be finite floats and FIDs "
+             f"{'finite floats' if fid else 'N/A'}")
+    want = {"fused_linear": 0,
+            "per_image_normalize": NORM_LAUNCHES_PER_EPOCH * epochs * fid}
+    if launches != want or by_path:
+        fail(f"train {label}: kernel launches {launches} by path {by_path}, "
+             f"expected {want}")
+    notes = [f"FID per epoch {fids}"]
+    if fid:
+        pngs = glob.glob(os.path.join(RUN_DIR, name, "fid_results", "samples",
+                                      f"sample_*_{epochs - 1}.png"))
+        if len(pngs) != N_SAMPLES:
+            fail(f"train {label}: {len(pngs)} sample PNGs of the last epoch, "
+                 f"expected {N_SAMPLES}")
+        notes.append(f"{len(pngs)} sample PNGs an epoch")
+    if save:
+        ckpt = os.path.join(RUN_DIR, name, "models", f"model_{epochs}")
+        if not os.path.isfile(ckpt):
+            fail(f"train {label}: no checkpoint {ckpt}")
+        notes.append(f"checkpoint {os.path.getsize(ckpt) / 1e9:.3f} GB")
+    rates = [e["img_per_s"] for e in epochs_seen]
+    steps = [e["steps"] for e in epochs_seen]
+    say(f"[train] {label}: {epochs} epochs x {steps[0]} steps at batch "
+        f"{BATCH}, full width; img/s per epoch (wall, all steps) "
+        f"{[round(v, 1) for v in rates]}, meter {out['images_per_sec']:.1f} "
+        f"img/s; losses per epoch (Avg Loss, Avg Recon Loss) "
+        f"{[(round(r['Avg Loss'], 4), round(r['Avg Recon Loss'], 4)) for r in records]}"
+        f"; {'; '.join(notes)}; wall {wall:.1f} s incl. init; launches "
+        f"{json.dumps(launches)}; last step {json.dumps(out['step_metrics'])}"
+        f"; card {card}")
+    return launches, by_path, rates
+
+
+def profile_family(dataset: str, flags: list, card: str) -> dict:
+    """One family's step through cli/profile_step.py at full width: ms/step
+    by CUDA events, device busy and idle share, time by kernel category."""
+    from disentangle_mlp_tpu_torch.cli import profile_step
+
+    res = profile_step.main(["--name", f"prof_{dataset}", "--dataset",
+                             dataset, "--calc_fid", "False", "--dtype",
+                             "bfloat16", *flags])
+    if not (math.isfinite(res["ms_per_step"]) and res["ms_per_step"] > 0
+            and res["fused_linear_launches_per_step"] == 0):
+        fail(f"profile {dataset}: {res}")
+    cats = {k: round(v, 4) for k, v in res["by_category_ms_per_step"].items()}
+    say(f"[time] {dataset} step (profile_step, batch {res['batch']}, "
+        f"{res['steps']} steps): {res['ms_per_step']:.3f} ms/step by CUDA "
+        f"events, {res['images_per_sec']:.1f} img/s; device busy "
+        f"{res['device_busy_ms_per_step']:.3f} ms/step, idle share "
+        f"{res['device_idle_share']:.3f}, "
+        f"{res['device_kernels_per_step']:.0f} kernels a step; device ms by "
+        f"category {json.dumps(cats)}; peak "
+        f"{res['peak_memory_gib']:.2f} GiB; card {card}")
+    return res
+
+
 def fid_dir_stats(out_dir: str, u8, stats_path: str, card: str) -> None:
     """statistics_from_dir over the sample PNGs fid_split wrote against
     the statistics of the same uint8 arrays in memory, pool3 in the same
@@ -1238,7 +1464,7 @@ def main() -> None:
 
     # 3. time
     rows = time_fused_linear(fl, torch, card)
-    norm_row = time_per_image_normalize(pin, torch)
+    norm_rows = time_per_image_normalize(pin, torch, card)
 
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     try:
@@ -1255,8 +1481,26 @@ def main() -> None:
                       stats_path)]
         # 6. eval: sweep the intent run's checkpoint
         runs.append(evaluate(fl, pin, runs[1][2], stats_path, card))
+        # the families: birds with FID and its checkpoint, MNIST's idx data
+        runs.append(train_family(
+            fl, pin, "birds", ["--dataset", "birds", "--img_size",
+                               str(BIRDS_IMG), "--synthetic_data", "True",
+                               "--synthetic_train_size",
+                               str(BIRDS_STEPS * BATCH), "--calc_fid", "True",
+                               "--n_samples", str(N_SAMPLES),
+                               "--fid_path_pretrained", stats_path],
+            FAMILY_EPOCHS, fid=True, save=True, card=card))
+        mnist_dir = write_mnist(os.path.join(RUN_DIR, "mnist"))
+        runs.append(train_family(
+            fl, pin, "mnist", ["--dataset", "mnist", "--img_size", "28",
+                               "--input_channels", "1", "--image_root_train",
+                               mnist_dir, "--synthetic_data", "False",
+                               "--calc_fid", "True",
+                               "--fid_path_pretrained", stats_path],
+            FAMILY_EPOCHS, fid=False, save=False, card=card))
         # 7. the FID phase, part by part
         split_dir, split_u8 = fid_split(stats_path, card)
+        fid_split(stats_path, card, "birds")
         # 8. data: the decoder, the fixture, a JPEG tree two epochs
         data_decoder(card)
         data_fixture(card)
@@ -1265,6 +1509,12 @@ def main() -> None:
         # 9. train on the tree, FID against a directory; then without FID
         runs.append(train_folder(fl, pin, tree, fid_dir, card))
         runs.append(train_folder(fl, pin, tree, "", card))
+        runs.append(train_family(
+            fl, pin, "birds folder", ["--dataset", "birds", "--img_size",
+                                      str(BIRDS_IMG), "--image_root_train",
+                                      tree, "--synthetic_data", "False",
+                                      "--calc_fid", "False"],
+            1, fid=False, save=False, card=card))
         launches = {k: sum(r[0][k] for r in runs) for k in runs[0][0]}
         by_path = {}
         for paths in (r[1] for r in runs):
@@ -1275,7 +1525,13 @@ def main() -> None:
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
 
-    # 11. report
+    # 11. the family steps, profiled; the colour fixture on the card
+    profile_family("birds", ["--img_size", str(BIRDS_IMG)], card)
+    profile_family("mnist", ["--img_size", "28", "--input_channels", "1"],
+                   card)
+    data_color(card)
+
+    # 12. report
     by_role = {r["role"]: r for r in rows}
 
     def step(model: str) -> dict:
@@ -1329,15 +1585,18 @@ def main() -> None:
         "replaces": "disentangle_mlp_tpu/ops/pallas/image_ops.py:36",
         "launches": launches["per_image_normalize"],
         "max_abs_err": norm_err,
-        "ms": norm_row["ms"], "plain_ms": norm_row["plain_ms"],
-        "bound_ms": norm_row["bound_ms"], "bound_by": norm_row["bound_by"],
+        "ms": norm_rows[0]["ms"], "plain_ms": norm_rows[0]["plain_ms"],
+        "bound_ms": norm_rows[0]["bound_ms"],
+        "bound_by": norm_rows[0]["bound_by"],
+        "device_ms": norm_rows[0]["device_ms"],
         "library_ms": None,
         "library_note": "no single PyTorch call computes a per-image min-max "
                         "rescale",
         "times_are": f"per call at {NORM_SHAPE} bf16 in the decoder's NHWC "
                      f"view of NCHW; {NORM_LAUNCHES_PER_EPOCH} launches per "
-                     f"FID epoch",
-        "shapes": [norm_row],
+                     f"FID epoch (shapes: also the birds FID path's "
+                     f"{BIRDS_NORM_SHAPE})",
+        "shapes": norm_rows,
     }]
     say(json.dumps({"kernels": kernels}))
     say(card)

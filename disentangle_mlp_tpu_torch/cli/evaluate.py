@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Dict
 
 from ..config import Config
+from ..train.families import FAMILY_DATASETS
 from ..train.loop import RUNNERS
 from .train import parse
 
@@ -23,7 +24,7 @@ def main(argv=None) -> Dict:
                                   argv)
     kwargs["to_train"] = False  # sweep only
     cfg = Config(**kwargs).finalize()
-    if cfg.dataset in ("birds", "mnist"):
+    if cfg.dataset in FAMILY_DATASETS:
         raise SystemExit(
             f"offline eval sweeps are celebA-only (the reference's "
             f"generate_samples_recons.py instantiates the celebA models); "

@@ -2,10 +2,13 @@
 
     python -m disentangle_mlp_tpu_torch.cli.profile_step --name prof \
         [--model vae|gan|betavaegan] [--freeze_mode observed|intent] \
-        [trainer flags ...]
+        [--dataset birds --img_size 128 | --dataset mnist --img_size 28 \
+         --input_channels 1] [trainer flags ...]
 
 Builds the experiment at the configured width (full default width unless
-flags shrink it), trains WARMUP steps on one synthetic batch, then times
+flags shrink it; ``--dataset birds|mnist`` builds that family's experiment
+whatever ``--model`` says, as the trainer does), trains WARMUP steps on one
+synthetic batch, then times
 STEPS steps with CUDA events (ms/step) and profiles as many more with
 ``torch.profiler``. Prints one JSON object: ms/step, device busy time,
 idle share and kernel count per step, device time per kernel category and
@@ -24,6 +27,7 @@ import torch
 from ..config import Config, build_arg_parser
 from ..data.pipeline import SyntheticSource
 from ..ops import fused_linear as fl
+from ..train.families import FAMILY_DATASETS, FamilyExperiment
 from ..train.gan import GANExperiment
 from ..train.vae import VAEExperiment
 from ..train.vaegan import VAEGANExperiment
@@ -97,7 +101,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         raise RuntimeError("profile_step measures a CUDA device and found "
                            "none")
     device = torch.device("cuda")
-    exp = EXPERIMENTS[model](cfg, device)
+    if cfg.dataset in FAMILY_DATASETS:
+        model = cfg.dataset
+        exp = FamilyExperiment(cfg, device)
+    else:
+        exp = EXPERIMENTS[model](cfg, device)
     src = SyntheticSource(size=cfg.batch_size_train, img_size=cfg.img_size,
                           channels=cfg.input_channels, seed=cfg.seed)
     x, _ = src.load_batch(range(cfg.batch_size_train))

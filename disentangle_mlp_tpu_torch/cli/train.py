@@ -6,8 +6,11 @@ surface plus ``--device``:
         [--device cuda|cpu] [flags of disentangle_mlp_tpu.cli.train ...]
 
 ``--model`` is ``vae``, ``gan`` or ``betavaegan`` (``vaegan`` is the same
-experiment). One ``--load_path`` resumes training from a checkpoint of
-either package; more than one, or ``--to_train False``, evaluates them
+experiment). ``--dataset birds|mnist`` trains that dataset's model family
+whatever ``--model`` says (train/families.py; birds needs ``--img_size
+128``, MNIST's idx files ``--input_channels 1``). One ``--load_path``
+resumes training from a checkpoint of either package; for the CelebA
+experiments more than one, or ``--to_train False``, evaluates them
 (cli/evaluate.py).
 """
 
@@ -16,7 +19,8 @@ from __future__ import annotations
 from typing import Dict
 
 from ..config import Config, build_arg_parser
-from ..train.loop import RUNNERS, resolve_device
+from ..train.families import FAMILY_DATASETS
+from ..train.loop import RUNNERS, resolve_device, run_family
 
 
 def parse(description: str, argv=None):
@@ -37,7 +41,9 @@ def parse(description: str, argv=None):
 def main(argv=None) -> Dict:
     model, device, kwargs = parse("disentangle_mlp_tpu_torch trainer", argv)
     cfg = Config(**kwargs).finalize()
-    return RUNNERS[model](cfg, device=device)
+    # a family dataset trains its family whatever --model says
+    run = run_family if cfg.dataset in FAMILY_DATASETS else RUNNERS[model]
+    return run(cfg, device=device)
 
 
 if __name__ == "__main__":

@@ -125,9 +125,10 @@ class Config:
     # cadence — new_betavaegan.py:222-228; 0 = never). Sweeps that don't
     # need resume can turn them off.
     checkpoint_every: int = 1
-    # Checkpoint storage dtype for the Adam moments of the JAX package's
-    # checkpoints ('float32' = exact, 'bfloat16' = smaller). The port's
-    # checkpoints store the moments as they are held.
+    # Checkpoint storage dtype for the Adam moments ('float32' = exact,
+    # 'bfloat16' = smaller), in the port's checkpoints as in the JAX
+    # package's: cast on save, cast back to --optimizer_dtype on load
+    # (utils/checkpoint.py).
     checkpoint_save_dtype: str = "float32"
     # Write the per-epoch FID sample PNGs (sample_{i}_{epoch}.png, the
     # reference's on-disk artifact — utils.py:21-26). True = parity.
@@ -140,7 +141,7 @@ class Config:
     cache_decoded: str = "auto"
     # torchvision resnet18 checkpoint for the birds encoder (the reference
     # uses resnet18(pretrained=True), models/model.py:19); birds family
-    # only, not yet ported.
+    # only, loaded when the file exists (models/resnet.py).
     resnet18_ckpt: str = ""
 
     # --- derived output paths (filled by finalize()) ---------------------

@@ -25,6 +25,11 @@
 // converted as PIL's cmyk2rgb does: v = CLIP8(nk − nk·c/255), nk = 255 − k,
 // with PIL's rounded MULDIV255.
 //
+// dmt_jpeg_host_planes gives a file's component planes as the IDCT leaves
+// them (what the card's decoder hands data/native.py), and
+// dmt_jpeg_host_encode writes JPEGs of any colour space and sampling
+// factors, for the fixture files PIL cannot write (4:4:0, 4:1:1, YCCK).
+//
 // Build: g++ -O3 -std=c++17 -shared -fPIC -pthread ... -ljpeg
 // (ops/_build.py).
 
@@ -32,6 +37,7 @@
 #include <csetjmp>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <thread>
 #include <vector>
 
@@ -159,7 +165,7 @@ int decode_planes(const uint8_t* data, uint64_t len, int32_t* ncomp,
   jpeg_start_decompress(&cinfo);
   const int nc = cinfo.num_components;
   *ncomp = nc;
-  if (nc > 3) {
+  if (nc > 4) {
     jpeg_destroy_decompress(&cinfo);
     return 1;
   }
@@ -247,13 +253,63 @@ void dmt_jpeg_host_decode(const uint8_t* const* datas, const uint64_t* lens,
 }
 
 // One file's component planes before upsampling and colour conversion
-// (what the card's decoder hands data/native.py::ycc_to_rgb): call with
-// outs null for ncomp and dims (height, width per component), then with
-// ncomp buffers of those sizes. Returns a status as above.
+// (what the card's decoder hands data/native.py::ycc_to_rgb and
+// cmyk_to_rgb): call with outs null for ncomp (at most 4) and dims (height,
+// width per component, 8 int32), then with ncomp buffers of those sizes.
+// Returns a status as above.
 int32_t dmt_jpeg_host_planes(const uint8_t* data, uint64_t len,
                              int32_t* ncomp, int32_t* dims,
                              uint8_t* const* outs) {
   return decode_planes(data, len, ncomp, dims, outs);
 }
+
+// pixels: h*w*in_components bytes, RGB (3) or CMYK (4); jpeg_space: the
+// file's J_COLOR_SPACE (JCS_YCbCr 3, JCS_CMYK 4, JCS_YCCK 5); factors: the
+// (horizontal, vertical) sampling factor of each of its components. On
+// success *out holds the file (free it with dmt_jpeg_host_free) and the
+// return is 0; 1 if libjpeg refused the settings.
+int32_t dmt_jpeg_host_encode(const uint8_t* pixels, int32_t h, int32_t w,
+                             int32_t in_components, int32_t jpeg_space,
+                             const int32_t* factors, int32_t quality,
+                             uint8_t** out, uint64_t* out_len) {
+  jpeg_compress_struct cinfo;
+  JpegErr jerr;
+  unsigned char* buf = nullptr;
+  unsigned long len = 0;
+  cinfo.err = jpeg_std_error(&jerr.mgr);
+  jerr.mgr.error_exit = jpeg_err_exit;
+  jerr.mgr.emit_message = jpeg_quiet;
+  if (setjmp(jerr.jb)) {
+    jpeg_destroy_compress(&cinfo);
+    std::free(buf);
+    return 1;
+  }
+  jpeg_create_compress(&cinfo);
+  jpeg_mem_dest(&cinfo, &buf, &len);
+  cinfo.image_width = static_cast<JDIMENSION>(w);
+  cinfo.image_height = static_cast<JDIMENSION>(h);
+  cinfo.input_components = in_components;
+  cinfo.in_color_space = in_components == 4 ? JCS_CMYK : JCS_RGB;
+  jpeg_set_defaults(&cinfo);
+  jpeg_set_colorspace(&cinfo, static_cast<J_COLOR_SPACE>(jpeg_space));
+  jpeg_set_quality(&cinfo, quality, TRUE);
+  for (int ci = 0; ci < cinfo.num_components; ++ci) {
+    cinfo.comp_info[ci].h_samp_factor = factors[2 * ci];
+    cinfo.comp_info[ci].v_samp_factor = factors[2 * ci + 1];
+  }
+  jpeg_start_compress(&cinfo, TRUE);
+  const size_t stride = static_cast<size_t>(w) * in_components;
+  while (cinfo.next_scanline < cinfo.image_height) {
+    JSAMPROW row = const_cast<uint8_t*>(pixels) + cinfo.next_scanline * stride;
+    jpeg_write_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_compress(&cinfo);
+  jpeg_destroy_compress(&cinfo);
+  *out = buf;
+  *out_len = len;
+  return 0;
+}
+
+void dmt_jpeg_host_free(uint8_t* p) { std::free(p); }
 
 }  // extern "C"

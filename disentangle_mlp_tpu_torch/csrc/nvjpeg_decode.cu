@@ -15,18 +15,23 @@
 //       single-image), a stream parser and an event, created once and kept
 //       for the process;
 //   dmt_nvjpeg_info: each file's components, chroma subsampling and the
-//       height and width of each component's plane, from its header
-//       (nvjpegGetImageInfo); the caller then allocates one torch uint8
-//       device buffer for the batch;
+//       height and width of each component's plane (up to 4), from its
+//       header (nvjpegGetImageInfo); the caller then allocates one torch
+//       uint8 device buffer for the batch;
 //   dmt_nvjpeg_decode: every file into its slice of that buffer, in one
 //       output format for the call, on the caller's stream (torch's current
-//       stream). NVJPEG_OUTPUT_YUV leaves each component's plane as the IDCT
-//       gives it (the caller upsamples and converts them with libjpeg's own
-//       arithmetic, data/native.py::ycc_to_rgb); NVJPEG_OUTPUT_RGBI is
-//       nvJPEG's own conversion, interleaved. Files that
+//       stream). NVJPEG_OUTPUT_YUV leaves a colour file's three planes as the
+//       IDCT gives them, and NVJPEG_OUTPUT_UNCHANGED the four of a CMYK or
+//       YCCK file (the caller upsamples and converts them with libjpeg's own
+//       arithmetic, data/native.py::ycc_to_rgb and cmyk_to_rgb);
+//       NVJPEG_OUTPUT_RGBI is nvJPEG's own conversion, interleaved. Files that
 //       nvjpegDecodeBatchedSupported accepts go through one
 //       nvjpegDecodeBatched call; the others through nvjpegDecode, one at a
-//       time, still on the card, and are counted.
+//       time, still on the card, and are counted. Four-component files go
+//       one at a time through the decoupled decoder (nvjpegDecodeJpeg, the
+//       hybrid backend) with decode parameters that allow CMYK: nvJPEG
+//       12.4's nvjpegDecode crashes the process on them (a segfault, not a
+//       status) on an H100, measured with chip_smoke.py's colour fixture.
 // The bitstreams are copied into a pinned staging buffer kept across calls
 // (grown as needed), so the caller's bytes may go as soon as a call
 // returns; an event recorded after the decode guards the buffer's reuse.
@@ -65,6 +70,12 @@ struct Decoder {
   int batch_fmt = -1;    // ... and in which output format
   unsigned char* staging = nullptr;
   size_t staging_cap = 0;
+  // the decoupled decoder of four-component files, made at first use
+  nvjpegJpegDecoder_t dec4 = nullptr;
+  nvjpegJpegState_t state4 = nullptr;
+  nvjpegBufferPinned_t pinned4 = nullptr;
+  nvjpegBufferDevice_t device4 = nullptr;
+  nvjpegDecodeParams_t params4 = nullptr;
 };
 
 Decoder g;
@@ -78,13 +89,15 @@ int cuda_code(cudaError_t e) { return e == cudaSuccess ? 0 : kCudaBase + e; }
     if (rc_ != 0) return rc_;     \
   } while (0)
 
-// image i's planes: outs[3i..3i+2] with pitches[3i..3i+2] (unused null)
+constexpr int kPlanes = NVJPEG_MAX_COMPONENT;  // 4
+
+// image i's planes: outs[4i..4i+3] with pitches[4i..4i+3] (unused null)
 nvjpegImage_t dest(uint8_t* const* outs, const int32_t* pitches, int i) {
   nvjpegImage_t img;
   std::memset(&img, 0, sizeof(img));
-  for (int p = 0; p < 3; ++p) {
-    img.channel[p] = outs[3 * i + p];
-    img.pitch[p] = static_cast<size_t>(pitches[3 * i + p]);
+  for (int p = 0; p < kPlanes; ++p) {
+    img.channel[p] = outs[kPlanes * i + p];
+    img.pitch[p] = static_cast<size_t>(pitches[kPlanes * i + p]);
   }
   return img;
 }
@@ -92,6 +105,30 @@ nvjpegImage_t dest(uint8_t* const* outs, const int32_t* pitches, int i) {
 int decode_one(const unsigned char* data, size_t len, nvjpegOutputFormat_t fmt,
                nvjpegImage_t img, cudaStream_t stream) {
   return nvjpegDecode(g.handle, g.single, data, len, fmt, &img, stream);
+}
+
+int open_decoder4() {
+  if (g.dec4 != nullptr) return 0;
+  TRY(nvjpegDecoderCreate(g.handle, NVJPEG_BACKEND_HYBRID, &g.dec4));
+  TRY(nvjpegDecoderStateCreate(g.handle, g.dec4, &g.state4));
+  TRY(nvjpegBufferPinnedCreate(g.handle, nullptr, &g.pinned4));
+  TRY(nvjpegBufferDeviceCreate(g.handle, nullptr, &g.device4));
+  TRY(nvjpegStateAttachPinnedBuffer(g.state4, g.pinned4));
+  TRY(nvjpegStateAttachDeviceBuffer(g.state4, g.device4));
+  TRY(nvjpegDecodeParamsCreate(g.handle, &g.params4));
+  TRY(nvjpegDecodeParamsSetOutputFormat(g.params4, NVJPEG_OUTPUT_UNCHANGED));
+  TRY(nvjpegDecodeParamsSetAllowCMYK(g.params4, 1));
+  return 0;
+}
+
+// One CMYK or YCCK file, already parsed into g.parser, into its four planes.
+int decode_four(nvjpegImage_t img, cudaStream_t stream) {
+  TRY(open_decoder4());
+  int unsupported = 1;
+  TRY(nvjpegDecoderJpegSupported(g.dec4, g.parser, g.params4, &unsupported));
+  if (unsupported != 0) return NVJPEG_STATUS_JPEG_NOT_SUPPORTED;
+  return nvjpegDecodeJpeg(g.handle, g.dec4, g.state4, g.parser, &img,
+                          g.params4, stream);
 }
 
 }  // namespace
@@ -121,7 +158,7 @@ int dmt_nvjpeg_version(int32_t* major, int32_t* minor, int32_t* patch) {
   return 0;
 }
 
-// dims: n*6 int32 (height, width of components 0-2; 0 where absent);
+// dims: n*8 int32 (height, width of components 0-3; 0 where absent);
 // c, css, status: n int32 each (status: nvjpegStatus_t per file).
 int dmt_nvjpeg_info(const uint8_t* const* datas, const uint64_t* lens,
                     int32_t n, int32_t* dims, int32_t* c, int32_t* css,
@@ -134,9 +171,9 @@ int dmt_nvjpeg_info(const uint8_t* const* datas, const uint64_t* lens,
     int heights[NVJPEG_MAX_COMPONENT] = {0};
     status[i] = nvjpegGetImageInfo(g.handle, datas[i], lens[i], &comps, &sub,
                                    widths, heights);
-    for (int p = 0; p < 3; ++p) {
-      dims[6 * i + 2 * p] = heights[p];
-      dims[6 * i + 2 * p + 1] = widths[p];
+    for (int p = 0; p < kPlanes; ++p) {
+      dims[2 * kPlanes * i + 2 * p] = heights[p];
+      dims[2 * kPlanes * i + 2 * p + 1] = widths[p];
     }
     c[i] = comps;
     css[i] = sub;
@@ -145,8 +182,9 @@ int dmt_nvjpeg_info(const uint8_t* const* datas, const uint64_t* lens,
 }
 
 // fmt: an nvjpegOutputFormat_t for every file of the call; outs and
-// pitches: 3 device pointers and 3 pitches a file (the planes of
-// NVJPEG_OUTPUT_YUV, or one interleaved plane and two nulls); stream: a
+// pitches: 4 device pointers and 4 pitches a file (the planes of
+// NVJPEG_OUTPUT_YUV or _UNCHANGED, or one interleaved plane, the rest
+// null); stream: a
 // cudaStream_t (0 = the legacy default stream). On return *single_count is
 // the number of files decoded one at a time, *failed the index of the file
 // that failed (-1 if none).
@@ -185,15 +223,21 @@ int dmt_nvjpeg_decode(const uint8_t* const* datas, const uint64_t* lens,
     off += lens[i];
   }
 
-  // split: what the batched decoder takes, and the rest
+  // split: what the batched decoder takes, and the rest; four-component
+  // files each through the decoupled decoder
   std::vector<int> batch, rest;
   for (int i = 0; i < n; ++i) {
     int rc = nvjpegJpegStreamParse(g.handle, data[i], lens[i], 0, 0,
                                    g.parser);
+    if (rc == 0 && fmt == NVJPEG_OUTPUT_UNCHANGED) {
+      rc = decode_four(dest(outs, pitches, i), stream);
+      *single_count += 1;
+    }
     if (rc != 0) {
       *failed = i;
       return rc;
     }
+    if (fmt == NVJPEG_OUTPUT_UNCHANGED) continue;
     int unsupported = 1;
     rc = nvjpegDecodeBatchedSupported(g.handle, g.parser, &unsupported);
     if (rc != 0) {
@@ -205,6 +249,20 @@ int dmt_nvjpeg_decode(const uint8_t* const* datas, const uint64_t* lens,
 
   int rc = 0;
   int32_t singles = 0;
+  if (!batch.empty() &&
+      (g.batch_size != static_cast<int>(batch.size()) ||
+       g.batch_fmt != fmt_code)) {
+    // a batched state that does not take this output format: those files
+    // go one at a time too
+    rc = nvjpegDecodeBatchedInitialize(g.handle, g.batched,
+                                       static_cast<int>(batch.size()), 1, fmt);
+    g.batch_size = rc == 0 ? static_cast<int>(batch.size()) : -1;
+    g.batch_fmt = fmt_code;
+    if (rc != 0) {
+      rest.insert(rest.begin(), batch.begin(), batch.end());
+      batch.clear();
+    }
+  }
   if (!batch.empty()) {
     const int m = static_cast<int>(batch.size());
     std::vector<const unsigned char*> bdata(m);
@@ -215,12 +273,6 @@ int dmt_nvjpeg_decode(const uint8_t* const* datas, const uint64_t* lens,
       bdata[j] = data[i];
       blens[j] = lens[i];
       bdest[j] = dest(outs, pitches, i);
-    }
-    if (g.batch_size != m || g.batch_fmt != fmt_code) {
-      rc = nvjpegDecodeBatchedInitialize(g.handle, g.batched, m, 1, fmt);
-      if (rc != 0) return rc;
-      g.batch_size = m;
-      g.batch_fmt = fmt_code;
     }
     rc = nvjpegDecodeBatched(g.handle, g.batched, bdata.data(), blens.data(),
                              bdest.data(), stream);
@@ -245,7 +297,7 @@ int dmt_nvjpeg_decode(const uint8_t* const* datas, const uint64_t* lens,
       return rc;
     }
   }
-  *single_count = singles + static_cast<int32_t>(rest.size());
+  *single_count += singles + static_cast<int32_t>(rest.size());
   TRY(cuda_code(cudaEventRecord(g.done, stream)));
   g.pending = true;
   return cuda_code(cudaGetLastError());

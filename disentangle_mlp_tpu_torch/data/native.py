@@ -7,17 +7,20 @@ resize in ``native/preprocess.cpp``.
   ``NVJPEG_BACKEND_DEFAULT``): only the compressed bytes cross PCIe. It
   hands over the components' planes as its IDCT leaves them, and
   :func:`ycc_to_rgb` upsamples and converts them on the card with
-  libjpeg's own integer arithmetic (fancy upsampling, jdcolor.c's tables),
-  so the card's RGB differs from libjpeg's only by the IDCT's rounding;
-  greyscale files and chroma subsamplings other than 4:4:4, 4:2:2 and
-  4:2:0 take nvJPEG's own RGB. On the CPU, libjpeg (``csrc/jpeg_host.cpp``),
-  the decode's plain version, which gives the JAX package's native decode
-  byte for byte. A failed decode
-  raises ValueError naming the file; it is never retried on another
-  decoder, and nothing is skipped. A JPEG without its end-of-image marker
-  is refused as truncated (libjpeg would fill the missing part with grey).
-  The card's decoder refuses CMYK files (the host one converts them as PIL
-  does).
+  libjpeg's own integer arithmetic (jdsample.c's upsampling, jdcolor.c's
+  tables), so the card's RGB differs from libjpeg's only by the IDCT's
+  rounding. That covers every chroma subsampling libjpeg writes: 4:4:4,
+  4:2:2, 4:2:0, 4:4:0 and 4:1:1 (:data:`_PLANE_FACTORS`). CMYK and YCCK
+  files come out as their four planes and :func:`cmyk_to_rgb` converts
+  them as the host decoder and PIL do (YCCK through libjpeg's YCC→CMYK
+  step first, then Adobe's inverted CMYK through PIL's ``cmyk2rgb``).
+  Greyscale files take nvJPEG's own output (grey to RGB is a copy). On the
+  CPU, libjpeg (``csrc/jpeg_host.cpp``), the decode's plain version, which
+  gives the JAX package's native decode byte for byte, and PIL's for CMYK.
+  A failed decode raises ValueError naming the file; it is never retried
+  on another decoder, and nothing is skipped. A JPEG without its
+  end-of-image marker is refused as truncated (libjpeg would fill the
+  missing part with grey).
 - **PNG decode** on the host (``utils/image_io.decode_png``), the images
   then moved to the device.
 - **The resize**: PIL's antialiased bilinear filter, its tables built
@@ -54,9 +57,12 @@ import torch
 from ..utils.image_io import PNG_SIGNATURE, decode_png
 
 NVJPEG_BACKEND = ("DEFAULT", 0)  # nvjpegBackend_t NVJPEG_BACKEND_DEFAULT
-_NVJPEG_YUV, _NVJPEG_RGBI = 1, 5  # nvjpegOutputFormat_t
-# chroma (horizontal, vertical) subsamplings that ycc_to_rgb takes
-_PLANE_FACTORS = ((1, 1), (2, 1), (2, 2))
+# nvjpegOutputFormat_t
+_NVJPEG_UNCHANGED, _NVJPEG_YUV, _NVJPEG_RGBI = 0, 1, 5
+_PLANES = 4  # NVJPEG_MAX_COMPONENT: planes (and dims) a file at the binding
+# (horizontal, vertical) subsamplings of a component that _upsample takes:
+# 4:4:4, 4:2:2, 4:2:0, 4:4:0 and 4:1:1
+_PLANE_FACTORS = ((1, 1), (2, 1), (2, 2), (1, 2), (4, 1))
 JPEG_MAGIC = b"\xff\xd8"
 JPEG_EOI = b"\xff\xd9"
 # the float32 constant of the JAX package's u8 → [-1, 1] step
@@ -174,61 +180,101 @@ def _status(rc: int) -> str:
     return f"nvJPEG status {rc} ({_NVJPEG_STATUS.get(rc, '?')})"
 
 
+def adobe_transform(data: bytes):
+    """The transform byte of a JPEG's Adobe APP14 marker (0 CMYK or RGB, 1
+    YCbCr, 2 YCCK), or None without one: how libjpeg tells a CMYK file from
+    a YCCK one (jdapimin.c: 4 components with transform 0 are CMYK, any
+    other transform YCCK, no marker CMYK)."""
+    i = 2
+    while i + 4 <= len(data) and data[i] == 0xFF:
+        marker = data[i + 1]
+        if marker == 0xDA:  # start of scan: the header is over
+            break
+        seg = int.from_bytes(data[i + 2:i + 4], "big")
+        body = data[i + 4:i + 2 + seg]
+        if marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+            return body[11]
+        i += 2 + seg
+    return None
+
+
 def _decode_jpeg_card(datas, names, device) -> List[torch.Tensor]:
-    """nvJPEG on the card. Colour files of 4:4:4, 4:2:2 or 4:2:0 chroma
-    come out as the IDCT's planes and go through :func:`ycc_to_rgb`,
-    libjpeg's own upsampling and conversion; greyscale files and other
-    subsamplings as nvJPEG's interleaved RGB."""
+    """nvJPEG on the card. Colour files come out as the IDCT's planes
+    (three through NVJPEG_OUTPUT_YUV, the four of CMYK and YCCK through
+    NVJPEG_OUTPUT_UNCHANGED) and go through :func:`ycc_to_rgb` or
+    :func:`cmyk_to_rgb`, libjpeg's and PIL's own arithmetic; greyscale
+    files, and colour files of a subsampling _upsample does not take, as
+    nvJPEG's interleaved RGB."""
     global card_decoded, card_single
     lib = _card_lib()
     n = len(datas)
     ptrs, lens = _ptrs(datas)
-    dims, c, css, st = _i32(6 * n), _i32(n), _i32(n), _i32(n)
+    dims, c, css, st = _i32(2 * _PLANES * n), _i32(n), _i32(n), _i32(n)
     rc = lib.dmt_nvjpeg_info(ptrs, lens, n, dims, c, css, st)
     if rc:
         raise RuntimeError(f"nvJPEG: {_status(rc)}")
-    planes, rgbi, sizes = [], [], []
+    # per file: its output format and its planes' (height, width)
+    fmts, shapes, sizes = [], [], []
     for i in range(n):
         if st[i]:
             raise ValueError(f"{names[i]}: nvJPEG could not read the JPEG "
                              f"header ({_status(st[i])})")
-        if c[i] not in (1, 3):
-            raise ValueError(f"{names[i]}: a JPEG of {c[i]} components "
-                             f"(CMYK) is not decoded on the card")
-        h, w, ch, cw = dims[6 * i], dims[6 * i + 1], dims[6 * i + 2], \
-            dims[6 * i + 3]
-        if c[i] == 3 and chroma_factors(h, w, ch, cw) in _PLANE_FACTORS:
-            planes.append(i)
-            sizes.append(h * w + 2 * ch * cw)
+        d = dims[2 * _PLANES * i:2 * _PLANES * (i + 1)]
+        comps = [(d[2 * p], d[2 * p + 1]) for p in range(c[i])]
+        hh, ww = comps[0]
+        if c[i] == 4:
+            # full-size planes, whatever the sampling: the component's
+            # rows are read at its own size from a pitch of the width
+            hh, ww = max(h for h, _ in comps), max(w for _, w in comps)
+            fmts.append(_NVJPEG_UNCHANGED)
+            shapes.append(comps)
+            sizes.append(4 * hh * ww)
+        elif c[i] == 3 and all(chroma_factors(hh, ww, h, w) in _PLANE_FACTORS
+                               for h, w in comps[1:]):
+            fmts.append(_NVJPEG_YUV)
+            shapes.append(comps)
+            sizes.append(sum(h * w for h, w in comps))
+        elif c[i] in (1, 3):
+            fmts.append(_NVJPEG_RGBI)
+            shapes.append([(hh, ww)])
+            sizes.append(3 * hh * ww)
         else:
-            rgbi.append(i)
-            sizes.append(3 * h * w)
+            raise ValueError(f"{names[i]}: a JPEG of {c[i]} components is "
+                             f"not decoded")
     buf = torch.empty(sum(sizes), dtype=torch.uint8, device=device)
     offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
     base = buf.data_ptr()
     stream = torch.cuda.current_stream(device).cuda_stream
     views: Dict[int, tuple] = {}
     single = 0
-    for fmt, group in ((_NVJPEG_YUV, planes), (_NVJPEG_RGBI, rgbi)):
+    for fmt in (_NVJPEG_YUV, _NVJPEG_UNCHANGED, _NVJPEG_RGBI):
+        group = [i for i in range(n) if fmts[i] == fmt]
         if not group:
             continue
-        outs = (ctypes.c_void_p * (3 * len(group)))()
-        pitches = _i32(3 * len(group))
+        outs = (ctypes.c_void_p * (_PLANES * len(group)))()
+        pitches = _i32(_PLANES * len(group))
         for j, i in enumerate(group):
-            h, w, ch, cw = dims[6 * i:6 * i + 4]
             o = int(offs[i])
-            if fmt == _NVJPEG_YUV:
-                shapes = ((h, w), (ch, cw), (ch, cw))
-                starts = (o, o + h * w, o + h * w + ch * cw)
-                for p in range(3):
-                    outs[3 * j + p] = base + starts[p]
-                    pitches[3 * j + p] = shapes[p][1]
-                views[i] = tuple(buf[st0:st0 + a * b].view(a, b)
-                                 for st0, (a, b) in zip(starts, shapes))
-            else:
-                outs[3 * j] = base + o
-                pitches[3 * j] = 3 * w
+            if fmt == _NVJPEG_RGBI:
+                (h, w), = shapes[i]
+                outs[_PLANES * j] = base + o
+                pitches[_PLANES * j] = 3 * w
                 views[i] = (buf[o:o + 3 * h * w].view(h, w, 3),)
+                continue
+            planes = []
+            full = sizes[i] // 4
+            ww = max(w for _, w in shapes[i])
+            for p, (h, w) in enumerate(shapes[i]):
+                if fmt == _NVJPEG_UNCHANGED:
+                    start, pitch = o + p * full, ww
+                else:
+                    start, pitch = o, w
+                    o += h * w
+                outs[_PLANES * j + p] = base + start
+                pitches[_PLANES * j + p] = pitch
+                planes.append(buf[start:start + (h - 1) * pitch + w]
+                              .as_strided((h, w), (pitch, 1)))
+            views[i] = tuple(planes)
         gd = [datas[i] for i in group]
         gptrs, glens = _ptrs(gd)
         n_single, failed = ctypes.c_int32(0), ctypes.c_int32(-1)
@@ -243,15 +289,20 @@ def _decode_jpeg_card(datas, names, device) -> List[torch.Tensor]:
         single += n_single.value
     out: List = [None] * n
     by_shape: Dict[tuple, List[int]] = {}
-    for i in planes:
-        by_shape.setdefault(tuple(v.shape for v in views[i]), []).append(i)
-    for idx in by_shape.values():
-        rgb = ycc_to_rgb(*(torch.stack([views[i][p] for i in idx])
-                           for p in range(3)))
+    for i in range(n):
+        if fmts[i] == _NVJPEG_RGBI:
+            out[i] = views[i][0]
+            continue
+        ycck = fmts[i] == _NVJPEG_UNCHANGED and adobe_transform(datas[i]) \
+            not in (None, 0)
+        by_shape.setdefault((fmts[i], ycck, tuple(shapes[i])), []).append(i)
+    for (fmt, ycck, _), idx in by_shape.items():
+        planes = [torch.stack([views[i][p] for i in idx])
+                  for p in range(len(views[idx[0]]))]
+        rgb = ycc_to_rgb(*planes) if fmt == _NVJPEG_YUV else \
+            cmyk_to_rgb(planes, ycck)
         for k, i in enumerate(idx):
             out[i] = rgb[k]
-    for i in rgbi:
-        out[i] = views[i][0]
     with _count_lock:
         card_decoded += n
         card_single += single
@@ -309,48 +360,92 @@ def _fancy_h2(s: torch.Tensor, bias_even: int, bias_odd: int,
 
 
 def _upsample(c: torch.Tensor, hf: int, vf: int) -> torch.Tensor:
-    """libjpeg-turbo's fancy upsampling (jdsample.c) of (G, h, w) chroma by
-    (hf, vf) ∈ {(1, 1), (2, 1), (2, 2)}, in int32."""
+    """libjpeg-turbo's upsampling (jdsample.c) of (G, h, w) components by
+    (hf, vf) ∈ :data:`_PLANE_FACTORS`, in int32: fancy (triangle) filters
+    for 2:1 horizontal, 2:1 both ways and 2:1 vertical, and plain
+    replication for 4:1 horizontal (int_upsample: libjpeg has no fancy
+    filter for it)."""
     c = c.to(torch.int32)
     if (hf, vf) == (1, 1):
         return c
     if (hf, vf) == (2, 1):  # h2v1_fancy_upsample
         return _fancy_h2(c, 1, 2, 2)
-    # h2v2_fancy_upsample: column sums 3·nearer row + further row (the
-    # edge rows their own neighbours), then the horizontal pass
+    if (hf, vf) == (4, 1):  # int_upsample
+        return c.repeat_interleave(4, dim=-1)
+    # the vertical pass of h2v2 and h1v2: 3·nearer row + further row, the
+    # edge rows their own neighbours
     above = torch.cat([c[:, :1], c[:, :-1]], 1)
     below = torch.cat([c[:, 1:], c[:, -1:]], 1)
+    if (hf, vf) == (1, 2):  # h1v2_fancy_upsample
+        return torch.stack([(3 * c + above + 1) >> 2,
+                            (3 * c + below + 2) >> 2], 2).flatten(1, 2)
+    if (hf, vf) != (2, 2):
+        raise ValueError(f"no upsampling for {hf}x{vf} (takes "
+                         f"{_PLANE_FACTORS})")
     s = torch.stack([3 * c + above, 3 * c + below], 2).flatten(1, 2)
-    return _fancy_h2(s, 8, 7, 4)
+    return _fancy_h2(s, 8, 7, 4)  # h2v2_fancy_upsample
 
 
 def chroma_factors(h: int, w: int, ch: int, cw: int) -> tuple:
-    """The (horizontal, vertical) subsampling of (ch, cw) chroma planes of
-    an (h, w) image."""
-    return round(w / cw), round(h / ch)
+    """The (horizontal, vertical) subsampling of a (ch, cw) plane of an
+    (h, w) image: the least factor f of 1, 2, 4 with ceil(size / f) equal
+    to the plane's size (libjpeg's downsampled_width), or the rounded ratio
+    where none fits."""
+    def factor(full: int, part: int) -> int:
+        return next((f for f in (1, 2, 4) if -(-full // f) == part),
+                    round(full / part))
+
+    return factor(w, cw), factor(h, ch)
+
+
+def _upsample_to(c: torch.Tensor, hh: int, ww: int) -> torch.Tensor:
+    """(G, h, w) plane → (G, hh, ww) int32 through :func:`_upsample`."""
+    hf, vf = chroma_factors(hh, ww, c.shape[1], c.shape[2])
+    if (hf, vf) not in _PLANE_FACTORS:
+        raise ValueError(f"chroma subsampling {hf}x{vf} is not taken "
+                         f"({_PLANE_FACTORS})")
+    return _upsample(c, hf, vf)[:, :hh, :ww]
+
+
+def _ycc_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
+             ) -> torch.Tensor:
+    """Full-size int planes → (G, H, W, 3) int64 RGB by ycc_rgb_convert's
+    fixed-point tables (jdcolor.c), range-limited."""
+    tab = torch.from_numpy(YCC_TABLES).to(y.device)
+    cbu, cru, yi = cb.long(), cr.long(), y.long()
+    r = yi + tab[0][cru]
+    gg = yi + ((tab[3][cbu] + tab[2][cru]) >> 16)
+    b = yi + tab[1][cbu]
+    return torch.stack([r, gg, b], -1).clamp_(0, 255)
 
 
 def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
                ) -> torch.Tensor:
     """(G, H, W) luma and (G, h, w) chroma planes, uint8, as a JPEG's IDCT
-    leaves them → (G, H, W, 3) uint8 RGB by libjpeg's own path: fancy
-    upsampling (jdsample.c), then ycc_rgb_convert's fixed-point tables
-    (jdcolor.c), range-limited. With libjpeg's planes this is libjpeg's
-    decode exactly (tests/test_torch_port_data.py); the card feeds it
-    nvJPEG's planes."""
-    g, hh, ww = y.shape
-    hf, vf = chroma_factors(hh, ww, cb.shape[1], cb.shape[2])
-    if (hf, vf) not in _PLANE_FACTORS:
-        raise ValueError(f"ycc_to_rgb: chroma subsampling {hf}x{vf} is not "
-                         f"taken (1x1, 2x1, 2x2)")
-    tab = torch.from_numpy(YCC_TABLES).to(y.device)
-    cbu = _upsample(cb, hf, vf)[:, :hh, :ww].long()
-    cru = _upsample(cr, hf, vf)[:, :hh, :ww].long()
-    yi = y.to(torch.int64)
-    r = yi + tab[0][cru]
-    gg = yi + ((tab[3][cbu] + tab[2][cru]) >> 16)
-    b = yi + tab[1][cbu]
-    return torch.stack([r, gg, b], -1).clamp_(0, 255).to(torch.uint8)
+    leaves them → (G, H, W, 3) uint8 RGB by libjpeg's own path: upsampling
+    (jdsample.c), then ycc_rgb_convert's fixed-point tables (jdcolor.c),
+    range-limited. With libjpeg's planes this is libjpeg's decode exactly
+    (tests/test_torch_port_data.py); the card feeds it nvJPEG's planes."""
+    _, hh, ww = y.shape
+    return _ycc_rgb(y, _upsample_to(cb, hh, ww),
+                    _upsample_to(cr, hh, ww)).to(torch.uint8)
+
+
+def cmyk_to_rgb(planes: Sequence[torch.Tensor], ycck: bool) -> torch.Tensor:
+    """The four (G, h_i, w_i) uint8 planes of a CMYK or YCCK JPEG → (G, H,
+    W, 3) uint8 RGB, as csrc/jpeg_host.cpp and PIL convert them: each plane
+    upsampled to the image's size as libjpeg does; a YCCK file's first three
+    through ycck_cmyk_convert (jdcolor.c: C = 255 − R of the YCC→RGB
+    tables, likewise M and Y; K kept); then the CMYK read inverted
+    (Adobe's convention, PIL's "CMYK;I") and converted by PIL's cmyk2rgb:
+    v = CLIP8(nk − MULDIV255(255 − raw, nk)), nk the raw K."""
+    hh = max(p.shape[1] for p in planes)
+    ww = max(p.shape[2] for p in planes)
+    up = [_upsample_to(p, hh, ww).long() for p in planes]
+    raw = 255 - _ycc_rgb(*up[:3]) if ycck else torch.stack(up[:3], -1)
+    nk = up[3].unsqueeze(-1)
+    tmp = (255 - raw) * nk + 128
+    return (nk - (((tmp >> 8) + tmp) >> 8)).clamp_(0, 255).to(torch.uint8)
 
 
 # --------------------------------------------------------------------------

@@ -17,12 +17,17 @@ outside any Pallas kernel.
 Initialization matches the reference's ``weights_init`` (model.py:8-13):
 conv kernels ~ N(0, 0.02²), BatchNorm scale ~ N(1, 0.02²) and bias 0;
 Linear layers and conv biases keep PyTorch's default
-U(-1/sqrt(fan_in), +1/sqrt(fan_in)). Every draw takes an explicit
+U(-1/sqrt(fan_in), +1/sqrt(fan_in)). The birds and MNIST families
+(models/resnet.py, birds.py, mnist.py) take flax's defaults instead, as the
+JAX package's families do: ``kernel_init="lecun"`` (a normal of variance
+1/fan_in truncated at ±2σ), zero biases or none (``bias="zeros"`` or
+``"none"``), and :class:`FlaxBatchNorm`. Every draw takes an explicit
 ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -43,6 +48,35 @@ def _uniform(shape, fan_in, generator):
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
 
 
+def _lecun_normal(shape, fan_in: int, generator) -> torch.Tensor:
+    """flax's default kernel init, variance_scaling(1, "fan_in",
+    "truncated_normal"): N(0, 1/fan_in) truncated at ±2σ, its std corrected
+    for the truncation, drawn by the inverse CDF."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    lo, hi = (0.5 * (1.0 + math.erf(v / math.sqrt(2.0))) for v in (-2.0, 2.0))
+    u = torch.rand(shape, generator=generator) * (hi - lo) + lo
+    return torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0) * std
+
+
+def _kernel(shape, fan_in: int, kernel_init: str, generator):
+    if kernel_init == "dcgan":
+        return _normal(shape, DCGAN_STD, generator)
+    if kernel_init == "lecun":
+        return _lecun_normal(shape, fan_in, generator)
+    raise ValueError(f"unknown kernel_init {kernel_init!r}")
+
+
+def _bias(features: int, fan_in: int, bias: str, generator):
+    """A bias parameter: PyTorch's uniform, flax's zeros, or None."""
+    if bias == "none":
+        return None
+    if bias == "zeros":
+        return nn.Parameter(torch.zeros(features))
+    if bias == "uniform":
+        return nn.Parameter(_uniform((features,), fan_in, generator))
+    raise ValueError(f"unknown bias {bias!r}")
+
+
 def activate(x: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "relu":
         return F.relu(x)
@@ -54,25 +88,27 @@ def activate(x: torch.Tensor, activation: str) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """Conv2d(k, stride, padding) on NCHW; weight OIHW."""
+    """Conv2d(k, stride, padding) on NCHW; weight OIHW. ``bias`` is
+    "uniform", "zeros" or "none"; ``kernel_init`` "dcgan" or "lecun"."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 5,
                  stride: int = 1, padding: int = 2,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 bias: str = "uniform", kernel_init: str = "dcgan"):
         super().__init__()
         k = kernel_size
         self.stride, self.padding, self.dtype = stride, padding, dtype
+        fan_in = in_ch * k * k
         self.weight = nn.Parameter(
-            _normal((features, in_ch, k, k), DCGAN_STD, generator))
-        self.bias = nn.Parameter(_uniform((features,), in_ch * k * k,
-                                          generator))
+            _kernel((features, in_ch, k, k), fan_in, kernel_init, generator))
+        self.bias = _bias(features, fan_in, bias, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
                      self.padding)
-        return y + self.bias.to(dt)[:, None, None]
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 
 class ConvTranspose(nn.Module):
@@ -83,7 +119,8 @@ class ConvTranspose(nn.Module):
     def __init__(self, in_ch: int, features: int, kernel_size: int = 5,
                  stride: int = 2, padding: int = 2, output_padding: int = 1,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 bias: str = "uniform", kernel_init: str = "dcgan"):
         super().__init__()
         if output_padding >= stride and not (stride == 1
                                              and output_padding == 0):
@@ -91,18 +128,19 @@ class ConvTranspose(nn.Module):
         k = kernel_size
         self.stride, self.padding = stride, padding
         self.output_padding, self.dtype = output_padding, dtype
-        self.weight = nn.Parameter(
-            _normal((in_ch, features, k, k), DCGAN_STD, generator))
+        # flax's fan_in of an (kh, kw, in, out) kernel: kh·kw·in
+        self.weight = nn.Parameter(_kernel((in_ch, features, k, k),
+                                           in_ch * k * k, kernel_init,
+                                           generator))
         # PyTorch ConvTranspose2d fan_in = out_channels * k * k
-        self.bias = nn.Parameter(_uniform((features,), features * k * k,
-                                          generator))
+        self.bias = _bias(features, features * k * k, bias, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
                                self.stride, self.padding,
                                self.output_padding)
-        return y + self.bias.to(dt)[:, None, None]
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 
 class Linear(nn.Module):
@@ -111,12 +149,18 @@ class Linear(nn.Module):
 
     def __init__(self, in_f: int, features: int,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 flax_init: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(_uniform((features, in_f), in_f,
-                                            generator))
-        self.bias = nn.Parameter(_uniform((features,), in_f, generator))
+        if flax_init:  # nn.Dense's defaults: lecun-normal kernel, zero bias
+            self.weight = nn.Parameter(_lecun_normal((features, in_f), in_f,
+                                                     generator))
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.weight = nn.Parameter(_uniform((features, in_f), in_f,
+                                                generator))
+            self.bias = nn.Parameter(_uniform((features,), in_f, generator))
 
     def forward(self, x: torch.Tensor,
                 activation: str = "none") -> torch.Tensor:
@@ -196,6 +240,47 @@ class BatchNorm(nn.Module):
         dt = self.dtype
         y = xg.to(dt) * inv.to(dt).view(shape) + shift.to(dt).view(shape)
         return y.reshape(x.shape)
+
+
+class FlaxBatchNorm(BatchNorm):
+    """``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` as
+    the families use it, on NCHW: float32 batch statistics with the biased
+    variance E[x²] − E[x]² (clipped at 0), carried into ``running_var``
+    as it is (no Bessel correction); (x − μ)·(rsqrt(σ² + ε)·scale) + bias in
+    float32; the result cast to ``dtype`` (the families' ``.astype(dt)``).
+    Scale starts at 1 and bias at 0. Its flax leaves sit at
+    ``…/BatchNorm_k/{scale, bias}`` and ``{mean, var}`` (utils/params.py).
+    A :class:`BatchNorm`, so :func:`train.common.sampling` restores its
+    running statistics."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 momentum: float = 0.9, epsilon: float = 1e-5):
+        nn.Module.__init__(self)
+        self.dtype, self.groups = dtype, 1
+        self.momentum, self.epsilon = momentum, epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        if train:
+            axes = (0,) + tuple(range(2, x.dim()))
+            mean = xf.mean(axes)
+            var = torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(self.dtype)
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,20 @@
-"""Epoch loop of the port's three experiments
-(disentangle_mlp_tpu/train/loop.py; reference experiments/new_vae.py,
-new_gan.py, new_betavaegan.py): config → logger → data → models → per
-epoch: train over batches → checkpoint → FID over ``n_samples`` samples →
-console line + JSON record; afterwards the ``--load_path`` evaluation sweep
-(FID, reconstructions, samples of each listed checkpoint). Logged keys per
-experiment, as the JAX package logs them:
+"""Epoch loop of the port's experiments (disentangle_mlp_tpu/train/loop.py;
+reference experiments/new_vae.py, new_gan.py, new_betavaegan.py): config →
+logger → data → models → per epoch: train over batches → checkpoint → FID
+over ``n_samples`` samples → console line + JSON record; afterwards the
+``--load_path`` evaluation sweep (FID, reconstructions, samples of each
+listed checkpoint). ``--dataset birds|mnist`` trains that dataset's model
+family instead, whatever ``--model`` says (:func:`run_family`: train loader
+only, exactly one ``--load_path`` resumes, FID for birds only, no sweep).
+Logged keys per experiment, as the JAX package logs them:
 
   vae:        {Epoch, Avg Loss, FID}
   gan:        {Epoch, Avg Loss G, Avg Loss E, FID}   ("Avg Loss E" holds
               the true average D loss, the JAX package's documented
               deviation from the reference's logging bug)
   betavaegan: {Epoch, Avg Eec Loss, Avg Dnc Loss, Avg Dis Loss, FID}
+  families:   {Epoch, Avg Loss, Avg Recon Loss, FID}   (FID 'N/A' for
+              mnist: its samples are not 3-channel n_hidden decodes)
 
 Per-epoch FID is scored asynchronously, as in the JAX package: the device
 work (decode, per-image normalize, pool3, uint8 quantize) runs at epoch end
@@ -22,10 +26,9 @@ scores inline.
 
 The data are an image folder (``--image_root_train``: JPEGs decoded and
 resized on the run's device, the uint8 cache on that device, filled ahead
-by the decode warm-up) or the synthetic stream; the reference statistics
-a ``.npz`` file or a directory of images. Not ported yet, and refused
-rather than skipped: the birds and mnist family models (their data
-loaders are ported), profiling and multi-device meshes.
+by the decode warm-up), MNIST's idx files or the synthetic stream; the
+reference statistics a ``.npz`` file or a directory of images. Not ported
+yet, and refused rather than skipped: profiling and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from ..eval.samples import (_sample_latents, gen_reconstructions,
 from ..utils.checkpoint import (load_checkpoint, rotate_checkpoints,
                                 save_checkpoint)
 from ..utils.logger import Logger
+from .families import FamilyExperiment
 from .gan import GANExperiment
 from .vae import VAEExperiment
 from .vaegan import VAEGANExperiment
@@ -252,13 +256,6 @@ class _EpochEmitter:
 
 
 def _refuse_unported(cfg: Config) -> None:
-    if cfg.dataset in ("birds", "mnist"):
-        raise NotImplementedError(
-            f"--dataset {cfg.dataset} trains a family model "
-            f"(models/{cfg.dataset}.py through train/families.py), and the "
-            f"family models are not ported yet (ROADMAP queue 1, item 7): "
-            f"run_family is not yet ported, though get_data_loader serves "
-            f"the {cfg.dataset} data")
     if cfg.profile_dir:
         raise NotImplementedError("--profile_dir is not yet ported")
     if cfg.mesh_shape > 1:
@@ -454,6 +451,41 @@ def _eval_sweep(cfg: Config, exp, sample_fn: Callable,
             print("Generated samples", flush=True)
         records.append({"path": path, "Epoch": epoch, "FID": fid})
     return records
+
+
+def run_family(cfg: Config, logger: Optional[Logger] = None,
+               device="cuda") -> Dict:
+    """Train ``cfg.dataset``'s model family (birds or mnist) for
+    ``cfg.epochs`` on the train loader; returns the last epoch's {Avg Loss,
+    Avg Recon Loss, FID}, ``images_per_sec`` and the last step's metrics
+    (``step_metrics``). One ``--load_path`` resumes; more than one raises,
+    as the families have no evaluation sweep."""
+    if len(cfg.load_path) > 1:
+        # the celebA runners sweep several checkpoints; training a family
+        # from scratch over the listed ones would be the worst outcome
+        raise ValueError(
+            "birds/mnist take exactly one --load_path (resume); "
+            "multi-checkpoint eval sweeps are celebA-only")
+    run = _Run(cfg, FamilyExperiment, logger, device)
+    exp = run.exp
+    for epoch in run.epochs():
+        avg = run.train_epoch(("loss", "recon"))
+        run.checkpoint(epoch)
+        loss, recon = avg["loss"], avg["recon"]
+        # FID needs 3-channel n_hidden decodes: only birds gives them
+        run.emitter.emit(
+            _maybe_fid_async(cfg, exp.decode, epoch, cfg.fid_path_samples,
+                             device=run.device)
+            if cfg.dataset == "birds" else _instant_na(),
+            lambda fid, e=epoch, a=loss, r=recon: {
+                "Epoch": e, "Avg Loss": a, "Avg Recon Loss": r, "FID": fid},
+            f"====> Epoch: {epoch} Average loss: {loss:.4f} "
+            f"(recon {recon:.4f}) FID: {{fid}} "
+            f"({run.meter.rate():.1f} img/s)")
+    last = run.emitter.finish()
+    last["images_per_sec"] = run.meter.rate()
+    last["step_metrics"] = {k: float(v) for k, v in run.m.items()}
+    return last
 
 
 RUNNERS = {"vae": run_vae, "gan": run_gan,

@@ -14,7 +14,15 @@ layout follows the submodule's type:
                   in (H, W, C) order, so no permutation is needed.
 - BatchNorm       ``{"bn": {"scale", "bias"}}`` → ``weight``/``bias``;
                   batch stats ``{"bn": {"mean", "var"}}`` →
-                  ``running_mean``/``running_var``.
+                  ``running_mean``/``running_var``. A FlaxBatchNorm (the
+                  families' raw ``flax.linen.BatchNorm``) has no ``bn``
+                  level: ``BatchNorm_k/{scale, bias}``, ``{mean, var}``.
+- A kernel layer without a bias (the families' ResNet, birds convs and
+  transposed convs) has only its ``kernel`` leaf.
+
+The families' modules carry flax's compact auto-names (``Conv_0``,
+``BatchNorm_1``, ``BasicBlock_3``, ``_CT_5`` ...) as attribute names, so
+the same walk gives their trees.
 
 One walk over the module (:func:`_param_leaves`) gives every parameter its
 flax path and layout. :func:`from_jax` / :func:`to_jax` move parameters
@@ -40,7 +48,8 @@ import torch
 from torch import nn
 
 from ..eval.inception import FoldedConv, InceptionV3
-from ..models.layers import BatchNorm, Conv, ConvTranspose, Linear
+from ..models.layers import (BatchNorm, Conv, ConvTranspose, FlaxBatchNorm,
+                             Linear)
 
 Tree = Dict[str, Any]
 Path = Tuple[str, ...]
@@ -87,24 +96,29 @@ def _layers(module: nn.Module, path: Path = ()
         yield from _layers(child, path + (name,))
 
 
+def _bn_path(path: Path, mod: BatchNorm) -> Path:
+    return path if isinstance(mod, FlaxBatchNorm) else path + ("bn",)
+
+
 def _param_leaves(module: nn.Module) -> Iterator[
         Tuple[Path, torch.Tensor, Optional[nn.Module]]]:
     """(flax path, parameter, kernel layer or None) for every parameter;
     the layer is given where the leaf takes its kernel layout."""
     for path, mod in _layers(module):
         if isinstance(mod, BatchNorm):
-            yield path + ("bn", "scale"), mod.weight, None
-            yield path + ("bn", "bias"), mod.bias, None
+            yield _bn_path(path, mod) + ("scale",), mod.weight, None
+            yield _bn_path(path, mod) + ("bias",), mod.bias, None
         else:
             yield path + ("kernel",), mod.weight, mod
-            yield path + ("bias",), mod.bias, None
+            if mod.bias is not None:
+                yield path + ("bias",), mod.bias, None
 
 
 def _stat_leaves(module: nn.Module) -> Iterator[Tuple[Path, torch.Tensor]]:
     for path, mod in _layers(module):
         if isinstance(mod, BatchNorm):
-            yield path + ("bn", "mean"), mod.running_mean
-            yield path + ("bn", "var"), mod.running_var
+            yield _bn_path(path, mod) + ("mean",), mod.running_mean
+            yield _bn_path(path, mod) + ("var",), mod.running_var
 
 
 def _put(tree: Tree, path: Path, value) -> None:

@@ -28,9 +28,13 @@ CelebA-sized JPEGs made with PIL, the JAX package's 64×64 ``load_batch_u8``
 of them and PIL's full-resolution decode of four; the card's decoder is
 held against it (chip_smoke.py ``[data] fixture``, and the ``cuda`` cases
 of tests/test_torch_port_data_cuda.py). It is written by
-:func:`write_fixture`:
+:func:`write_fixture`, and its colour-space and subsampling files (CMYK,
+YCCK, 4:4:0, 4:1:1, with their host decodes) by
+:func:`write_color_fixture`:
 
     JAX_PLATFORMS=cpu python -m tests.test_torch_port_data --write-fixture
+    JAX_PLATFORMS=cpu python -m tests.test_torch_port_data \
+        --write-color-fixture
 """
 
 import gc
@@ -56,7 +60,8 @@ from disentangle_mlp_tpu_torch.data import native
 from disentangle_mlp_tpu_torch.data import pipeline as pl
 from disentangle_mlp_tpu_torch.eval import fid as port_fid
 from disentangle_mlp_tpu_torch.utils import image_io
-from tests.test_torch_port_data_cuda import FIXTURE, fixture_paths
+from tests.test_torch_port_data_cuda import (COLOR_FIXTURE, FIXTURE,
+                                            color_fixture, fixture_paths)
 
 RESIZE_MAX_DIFF = 1
 RESIZE_EXACT = 0.999
@@ -108,6 +113,72 @@ def write_fixture(out: Path = FIXTURE) -> None:
                      for n in full_names])
     np.savez_compressed(out / "expected.npz", names=np.array(names), u8_64=u8,
                         full_names=np.array(full_names), full=full)
+
+
+# J_COLOR_SPACE of libjpeg, and sampling factors (h, v) per component
+JCS_YCBCR, JCS_CMYK, JCS_YCCK = 3, 4, 5
+COLOR_FILES = {  # name: (libjpeg colour space, factors); cmyk.jpg is PIL's
+    "ycck.jpg": (JCS_YCCK, (2, 2, 1, 1, 1, 1, 1, 1)),
+    "s440.jpg": (JCS_YCBCR, (1, 2, 1, 1, 1, 1)),
+    "s411.jpg": (JCS_YCBCR, (4, 1, 1, 1, 1, 1)),
+}
+COLOR_SIZE = (101, 77)  # (width, height): odd, so every plane has an edge
+
+
+def host_encode(pixels: np.ndarray, jpeg_space: int, factors,
+                quality: int = 90) -> bytes:
+    """A JPEG of (H, W, 3) RGB or (H, W, 4) CMYK uint8 pixels in libjpeg's
+    ``jpeg_space`` with the given sampling factors, written by
+    csrc/jpeg_host.cpp's dmt_jpeg_host_encode (libjpeg)."""
+    import ctypes
+
+    lib = native._host_lib()
+    enc, free = lib.dmt_jpeg_host_encode, lib.dmt_jpeg_host_free
+    vp, i32 = ctypes.c_void_p, ctypes.c_int32
+    enc.argtypes = [vp, i32, i32, i32, i32, vp, i32, vp, vp]
+    enc.restype = i32
+    free.argtypes, free.restype = [vp], None
+    px = np.ascontiguousarray(pixels, np.uint8)
+    f = (ctypes.c_int32 * len(factors))(*factors)
+    out, n = ctypes.c_void_p(), ctypes.c_uint64()
+    assert enc(px.ctypes.data, px.shape[0], px.shape[1], px.shape[2],
+               jpeg_space, f, quality, ctypes.byref(out),
+               ctypes.byref(n)) == 0
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        free(out)
+
+
+def _cmyk_pixels(size=COLOR_SIZE) -> np.ndarray:
+    """Smooth CMYK with every ink, black included, varying across the
+    image (PIL's RGB→CMYK leaves K at 0)."""
+    rgb = np.asarray(_sharp_image(3, size, block=4)).astype(np.int32)
+    k = np.asarray(_sharp_image(4, size, block=8))[..., :1].astype(np.int32)
+    return np.concatenate([255 - rgb, k // 2], -1).astype(np.uint8)
+
+
+def write_color_fixture(out: Path = FIXTURE) -> None:
+    """The colour-space and subsampling files under ``jpeg_color/``: a
+    CMYK file written by PIL (Adobe's inverted CMYK), and with libjpeg a
+    YCCK file of the same inks (4:2:0 on Y, Cb, Cr and K) and 4:4:0 and
+    4:1:1 files of an RGB image; ``expected_color.npz`` with their host
+    decodes (``names``, ``full``), which for the CMYK pair equal PIL's."""
+    out.joinpath("jpeg_color").mkdir(parents=True, exist_ok=True)
+    cmyk = _cmyk_pixels()
+    Image.fromarray(cmyk, "CMYK").save(COLOR_FIXTURE / "cmyk.jpg",
+                                       quality=90)
+    rgb = np.asarray(_sharp_image(5, COLOR_SIZE, block=2))
+    for name, (space, factors) in COLOR_FILES.items():
+        # libjpeg takes CMYK as stored: inverted, as PIL writes it
+        px = 255 - cmyk if space == JCS_YCCK else rgb
+        (COLOR_FIXTURE / name).write_bytes(host_encode(px, space, factors))
+    names = ["cmyk.jpg", *COLOR_FILES]
+    paths = [str(COLOR_FIXTURE / n) for n in names]
+    full = np.stack([d.numpy() for d in native.decode(
+        native.read_files(paths), paths, "cpu")])
+    np.savez_compressed(out / "expected_color.npz", names=np.array(names),
+                        full=full)
 
 
 def _jax_fixture_u8(root: Path):
@@ -324,11 +395,11 @@ def _libjpeg_planes(data: bytes):
     fn.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int32
-    nc, dims = ctypes.c_int32(), (ctypes.c_int32 * 6)()
+    nc, dims = ctypes.c_int32(), (ctypes.c_int32 * 8)()
     assert fn(data, len(data), ctypes.byref(nc), dims, None) == 0
     outs = [np.empty((dims[2 * i], dims[2 * i + 1]), np.uint8)
             for i in range(nc.value)]
-    ptrs = (ctypes.c_void_p * 3)(*[o.ctypes.data for o in outs])
+    ptrs = (ctypes.c_void_p * 4)(*[o.ctypes.data for o in outs])
     assert fn(data, len(data), ctypes.byref(nc), dims, ptrs) == 0
     return [torch.from_numpy(o)[None] for o in outs]
 
@@ -350,6 +421,37 @@ def test_port_ycc_to_rgb_is_libjpegs_color_path(size, subsampling,
     y, cb, cr = _libjpeg_planes(data)
     got = native.ycc_to_rgb(y, cb, cr)[0].numpy()
     np.testing.assert_array_equal(got, native.decode([data], ["x"], "cpu")[0])
+
+
+def _small_440_411():
+    """4:4:0 and 4:1:1 files at odd sizes, down to a 3-sample plane."""
+    out = {}
+    for size in ((37, 53), (9, 7)):
+        rgb = np.asarray(_sharp_image(size[0], size, block=2))
+        for name in ("s440.jpg", "s411.jpg"):
+            space, factors = COLOR_FILES[name]
+            out[f"{name[:-4]} {size}"] = host_encode(rgb, space, factors)
+    return out
+
+
+@pytest.mark.parametrize("name", ["cmyk.jpg", *COLOR_FILES, "s440 (37, 53)",
+                                  "s440 (9, 7)", "s411 (37, 53)",
+                                  "s411 (9, 7)"])
+def test_port_card_color_path_is_libjpegs_on_every_sampling_and_cmyk(name):
+    """ycc_to_rgb at 4:4:0 and 4:1:1 and cmyk_to_rgb on CMYK and YCCK,
+    fed libjpeg's own planes, give the host decode exactly (libjpeg's, and
+    PIL's for CMYK: the fixture guard below)."""
+    if name.endswith(".jpg"):
+        data = (COLOR_FIXTURE / name).read_bytes()
+    else:
+        data = _small_440_411()[name]
+    planes = _libjpeg_planes(data)
+    if len(planes) == 4:
+        got = native.cmyk_to_rgb(planes, native.adobe_transform(data) == 2)
+    else:
+        got = native.ycc_to_rgb(*planes)
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  native.decode([data], [name], "cpu")[0])
 
 
 def test_port_damaged_jpeg_raises_with_its_name(tmp_path):
@@ -741,6 +843,33 @@ def test_port_fixture_host_path_matches_expectations():
         np.testing.assert_array_equal(g.numpy(), want)
 
 
+def test_port_color_fixture_is_what_it_claims():
+    """Guard: the colour files have the colour spaces and samplings their
+    names say, expected_color.npz holds their host decodes, and for the
+    CMYK pair those equal PIL's."""
+    paths, full = color_fixture()
+    names = [Path(p).name for p in paths]
+    assert names == ["cmyk.jpg", *COLOR_FILES]
+    dec = native.decode(native.read_files(paths), paths, "cpu")
+    for name, p, g, want in zip(names, paths, dec, full):
+        np.testing.assert_array_equal(g.numpy(), want, err_msg=name)
+        data = Path(p).read_bytes()
+        shapes = [tuple(pl.shape[1:]) for pl in _libjpeg_planes(data)]
+        h, w = COLOR_SIZE[1], COLOR_SIZE[0]
+        if name.startswith("cmyk") or name.startswith("ycck"):
+            np.testing.assert_array_equal(
+                want, np.asarray(Image.open(p).convert("RGB")), err_msg=name)
+            assert native.adobe_transform(data) == (0 if name == "cmyk.jpg"
+                                                    else 2)
+            sub = (1, 1) if name == "cmyk.jpg" else (2, 2)
+            assert shapes == [(h, w)] + [(-(-h // sub[1]), -(-w // sub[0]))
+                                         ] * 3, name
+        else:
+            hf, vf = (1, 2) if name == "s440.jpg" else (4, 1)
+            assert shapes == [(h, w)] + [(-(-h // vf), -(-w // hf))] * 2
+            assert native.chroma_factors(h, w, *shapes[1]) == (hf, vf)
+
+
 # --------------------------------------------------------------------------
 # the trainer on an image folder
 # --------------------------------------------------------------------------
@@ -805,6 +934,9 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--write-fixture"]:
         write_fixture()
         print(f"wrote {FIXTURE}")
+    elif sys.argv[1:] == ["--write-color-fixture"]:
+        write_color_fixture()
+        print(f"wrote {COLOR_FIXTURE}")
     else:
         sys.exit("usage: python -m tests.test_torch_port_data "
-                 "--write-fixture")
+                 "--write-fixture | --write-color-fixture")

@@ -8,11 +8,12 @@ machine with the card:
 The fixture (disentangle_mlp_tpu_torch/data/fixtures/, written by
 tests/test_torch_port_data.py) holds 16 CelebA-sized JPEGs and the JAX
 package's 64×64 ``load_batch_u8`` of them, and PIL's full-resolution
-decode of four. The card upsamples and converts nvJPEG's planes with
-libjpeg's own arithmetic (data/native.py::ycc_to_rgb), so only the IDCT's
-rounding differs from libjpeg's: max |Δ| ≤ 6 grey levels at full
-resolution; at 64×64 mean |Δ| ≤ 1 and max |Δ| ≤ 8 (chip_smoke.py holds the
-same bars).
+decode of four; and a CMYK, a YCCK, a 4:4:0 and a 4:1:1 file with their
+host decodes. The card upsamples and converts nvJPEG's planes with
+libjpeg's own arithmetic (data/native.py::ycc_to_rgb, cmyk_to_rgb), so
+only the IDCT's rounding differs from libjpeg's: max |Δ| ≤ 6 grey levels
+at full resolution; at 64×64 mean |Δ| ≤ 1 and max |Δ| ≤ 8 (chip_smoke.py
+holds the same bars).
 """
 
 from pathlib import Path
@@ -25,6 +26,19 @@ from disentangle_mlp_tpu_torch.data import native
 
 FIXTURE = (Path(__file__).resolve().parent.parent / "disentangle_mlp_tpu_torch"
            / "data" / "fixtures")
+
+
+# CMYK (written by PIL), YCCK, 4:4:0 and 4:1:1 (written by libjpeg) files
+# and their host decodes (libjpeg; PIL's own for the CMYK pair)
+COLOR_FIXTURE = FIXTURE / "jpeg_color"
+
+
+def color_fixture():
+    """(paths of the colour-space and subsampling files, their host
+    decodes at full resolution)."""
+    with np.load(FIXTURE / "expected_color.npz") as f:
+        names, full = list(f["names"]), f["full"]
+    return [str(COLOR_FIXTURE / n) for n in names], full
 
 
 def fixture_paths():
@@ -73,3 +87,14 @@ def test_port_damaged_jpeg_raises_with_its_name_on_the_card(card):
             native.decode([data[0], content, data[2]],
                           [paths[0], name, paths[2]], "cuda")
             torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_port_color_fixture_card_decode_matches_the_host(card):
+    """CMYK, YCCK, 4:4:0 and 4:1:1 files decode on the card within the
+    full-resolution bar of the host decode (PIL's for CMYK and YCCK)."""
+    paths, full = color_fixture()
+    dec = native.decode(native.read_files(paths), paths, "cuda")
+    for p, g, want in zip(paths, dec, full):
+        assert g.shape == want.shape and g.dtype == torch.uint8, p
+        assert np.abs(g.cpu().numpy().astype(int) - want).max() <= 6, p

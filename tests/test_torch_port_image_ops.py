@@ -139,16 +139,19 @@ def test_port_per_image_normalize_refusals():
 @pytest.mark.cuda
 def test_port_per_image_normalize_kernel_matches_plain_on_cuda():
     """Runs only where a GPU is (python -m pytest -m cuda): the CUDA kernel
-    against the plain version in both layouts and types, strides kept."""
+    against the plain version in both layouts and types, strides kept, at
+    the CelebA FID path's 64×64 and the birds FID path's 128×128 (a float32
+    image then stages 192 KB of shared memory)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU; run with -m cuda on the GPU machine")
-    x_np = _images((5, 64, 64, 3), seed=4)
-    for dtype in (torch.float32, torch.bfloat16):
-        for layout in ("nhwc", "nchw_view"):
-            x = _port_input(x_np, dtype, layout).cuda()
-            got = pin.per_image_normalize(x)
-            want = pin.per_image_normalize_plain(x)
-            torch.cuda.synchronize()
-            assert got.stride() == x.stride()
-            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                                       rtol=0, atol=ATOL)
+    for hw, dtype, layout in ((hw, dt, lay) for hw in (64, 128)
+                              for dt in (torch.float32, torch.bfloat16)
+                              for lay in ("nhwc", "nchw_view")):
+        x = _port_input(_images((5, hw, hw, 3), seed=4), dtype,
+                        layout).cuda()
+        got = pin.per_image_normalize(x)
+        want = pin.per_image_normalize_plain(x)
+        torch.cuda.synchronize()
+        assert got.stride() == x.stride()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=ATOL)

@@ -8,6 +8,7 @@ import functools
 import glob
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -111,14 +112,90 @@ def test_port_checkpoint_rotation_and_resume(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra, error, match", [
-    (["--dataset", "birds"], NotImplementedError, "not yet ported"),
-    (["--dataset", "mnist"], NotImplementedError, "not ported yet"),
     (["--profile_dir", "x"], NotImplementedError, "not yet ported"),
     (["--mesh_shape", "2"], NotImplementedError, "not yet ported"),
 ])
 def test_port_trainer_refuses_unported_paths(tmp_path, extra, error, match):
     with pytest.raises(error, match=match):
         cli_train.main(_argv(tmp_path, *extra))
+
+
+def _family_argv(tmp_path, dataset, *extra):
+    """The trainer CLI on a family at toy size: --model stays betavaegan,
+    which the family datasets override, as in the JAX package."""
+    return ["--model", "betavaegan", "--dataset", dataset, "--name", dataset,
+            "--device", "cpu", "--n_hidden", "8", "--dtype", "float32",
+            "--save_path", str(tmp_path / "%"),
+            "--log_path", str(tmp_path / "%" / "log"), *extra]
+
+
+def _family_log(tmp_path, dataset):
+    (log_file,) = glob.glob(str(tmp_path / dataset / "log" / "log_*.json"))
+    with open(log_file) as f:
+        return json.load(f)["output"]
+
+
+def test_port_trainer_trains_the_mnist_family_and_resumes(tmp_path, capsys):
+    """--dataset mnist on MNIST's idx files: 2 epochs, the family's record
+    keys and epoch line, FID 'N/A' with --calc_fid True, a checkpoint an
+    epoch; one --load_path resumes after its epoch, two raise."""
+    from tests.test_torch_port_data import _mnist_files
+
+    data = tmp_path / "mnist"
+    _mnist_files(data, 8)
+    argv = _family_argv(tmp_path, "mnist", "--image_root_train", str(data),
+                        "--input_channels", "1", "--img_size", "28",
+                        "--batch_size_train", "4", "--calc_fid", "True",
+                        "--fid_path_pretrained", _stats_npz(tmp_path))
+    out = cli_train.main(argv + ["--epochs", "2"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("====> Epoch:")]
+    assert len(lines) == 2
+    assert re.fullmatch(r"====> Epoch: 1 Average loss: -?[\d.]+ \(recon "
+                        r"[\d.]+\) FID: N/A \([\d.]+ img/s\)", lines[1])
+    records = _family_log(tmp_path, "mnist")
+    assert [list(r) for r in records] == [["Epoch", "Avg Loss",
+                                           "Avg Recon Loss", "FID"]] * 2
+    assert [r["FID"] for r in records] == ["N/A", "N/A"]
+    assert np.isfinite(out["Avg Loss"]) and out["images_per_sec"] > 0
+    assert set(out["step_metrics"]) == {"loss", "errD", "recon", "D_x"}
+    models = tmp_path / "mnist" / "models"
+    assert sorted(os.listdir(models)) == ["model_1", "model_2"]
+    cli_train.main(argv + ["--epochs", "3", "--load_path",
+                           str(models / "model_2")])
+    epochs = [ln.split()[2] for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("====> Epoch:")]
+    assert epochs == ["2"]
+    with pytest.raises(ValueError, match="exactly one --load_path"):
+        cli_train.main(argv + ["--load_path", str(models / "model_1"),
+                               str(models / "model_2")])
+    with pytest.raises(ValueError, match="--input_channels 1"):
+        cli_train.main(argv + ["--input_channels", "3"])
+
+
+def test_port_trainer_trains_the_birds_family_with_fid(tmp_path, capsys):
+    """--dataset birds at 128×128: FID over the decoded samples against a
+    stats file each epoch, finite, its sample PNGs written; a smaller
+    --img_size is refused as the JAX package refuses it."""
+    argv = _family_argv(tmp_path, "birds", "--img_size", "128",
+                        "--synthetic_data", "True",
+                        "--synthetic_train_size", "4",
+                        "--batch_size_train", "2", "--calc_fid", "True",
+                        "--n_samples", "3", "--checkpoint_every", "0",
+                        "--fid_path_pretrained", _stats_npz(tmp_path))
+    out = cli_train.main(argv + ["--epochs", "1"])
+    assert isinstance(out["FID"], float) and np.isfinite(out["FID"])
+    assert np.isfinite(out["Avg Recon Loss"])
+    (line,) = [ln for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith("====> Epoch:")]
+    assert f"FID: {out['FID']}" in line
+    (rec,) = _family_log(tmp_path, "birds")
+    assert list(rec) == ["Epoch", "Avg Loss", "Avg Recon Loss", "FID"]
+    pngs = glob.glob(str(tmp_path / "birds" / "fid_results" / "samples"
+                         / "sample_*_0.png"))
+    assert len(pngs) == 3
+    with pytest.raises(ValueError, match="--img_size 128"):
+        cli_train.main(argv + ["--epochs", "1", "--img_size", "64"])
 
 
 def test_port_trainer_scores_fid_against_a_directory_of_images(tmp_path,
