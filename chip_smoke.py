@@ -73,7 +73,20 @@ Phases, each fatal on failure:
    CUDA events, device busy time, idle share, time by kernel category; the
    colour fixture decoded on the card (a CMYK, a YCCK, a 4:4:0 and a 4:1:1
    file) against the host decode, max |Δ| ≤ 6;
-12. print the ``kernels`` JSON line, the card line and, last, the ok line.
+12. the β search, the reproduction and the checkpoint conversion through
+   their CLIs, at full default width on synthetic data with phase 4's
+   statistics: ``cli.bo --posterior_only True`` against the GP computed
+   here from the reference's observations; the search, 2 β evaluations of
+   1 epoch of 2 steps with FID (2 distinct βs in [1, 150], 7 observations
+   in ``bo_history.json``, each evaluation's wall seconds); ``--bo_parallel
+   2`` on one card raising the ValueError naming 1 visible device;
+   ``cli.reproduce`` (statistics, calibration, β=25 for 2 epochs of 2
+   steps with FID, the report's fields, each part timed) and its
+   ``--assets_check``; a reference ``.tar`` written here at full width,
+   converted by ``cli.convert`` (leaves checked against the layout rules)
+   and resumed by the trainer for one epoch of 2 steps. Launches checked as
+   in phase 5;
+13. print the ``kernels`` JSON line, the card line and, last, the ok line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 package is missing.
@@ -1426,6 +1439,403 @@ def fid_dir_stats(out_dir: str, u8, stats_path: str, card: str) -> None:
         fail(f"fid dir: get_fid {score} is not finite")
 
 
+# the β search, the reproduction and the checkpoint conversion (phase 12):
+# two β evaluations of BO_EPOCHS epoch of BO_STEPS steps each; the
+# reproduction's 2 epochs of 2 steps, statistics of up to 2048 images and
+# calibration over up to 1024; the converted checkpoint of a reference
+# .tar at epoch CONVERT_EPOCH resumed for one epoch of 2 steps
+BO_ITERATIONS, BO_EPOCHS, BO_STEPS = 2, 1, 2
+BO_SEEDS = 5  # the reference's observations the search starts from
+# the GP computed here by np.linalg.solve against the CLI's Cholesky
+# posterior: float64 on a 5×5 Gram whose condition number is ~1e2
+TOL_BO = 1e-9
+REPRO_EPOCHS, REPRO_STEPS = 2, 2
+REPRO_STATS, REPRO_CALIB = 2048, 1024
+CONVERT_EPOCH, RESUME_STEPS = 3, 2
+
+
+def _run_paths(name: str) -> list:
+    """A run's name, its tree under RUN_DIR and the batch."""
+    return ["--name", name, "--save_path", os.path.join(RUN_DIR, "%"),
+            "--log_path", os.path.join(RUN_DIR, "%", "log"),
+            "--batch_size_train", str(BATCH)]
+
+
+def gp_posterior(betas, fids, grid, ell=30.0, sigma_f=50.0, xi=0.01,
+                 jitter=1e-9):
+    """The reference's GP (final_bo.py:24-57, with the CLI's mean shift and
+    jitter) and EI for minimization, written out here: posterior mean,
+    standard deviation and EI on ``grid``."""
+    import numpy as np
+
+    def k(a, b):
+        return sigma_f ** 2 * np.exp(-(a[:, None] - b[None, :]) ** 2
+                                     / (2.0 * ell ** 2))
+
+    x, y = np.asarray(betas, np.float64), np.asarray(fids, np.float64)
+    gram = k(x, x) + jitter * np.eye(x.size)
+    ks = k(grid, x)
+    mean = y.mean() + ks @ np.linalg.solve(gram, y - y.mean())
+    var = sigma_f ** 2 - np.sum(ks * np.linalg.solve(gram, ks.T).T, axis=1)
+    std = np.sqrt(np.clip(var, 0.0, None))
+    imp = y.min() - mean - xi
+    z = np.where(std > 0, imp / np.where(std > 0, std, 1.0), 0.0)
+    cdf = 0.5 * (1.0 + np.vectorize(math.erf)(z / math.sqrt(2.0)))
+    pdf = np.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi)
+    ei = np.where(std > 0, np.clip(imp * cdf + std * pdf, 0.0, None), 0.0)
+    return mean, std, ei
+
+
+def bo_posterior(card: str) -> None:
+    """``cli.bo --posterior_only True`` against the GP computed here from
+    the reference's observations."""
+    import numpy as np
+
+    from disentangle_mlp_tpu_torch.bo.driver import REFERENCE_OBSERVATIONS
+    from disentangle_mlp_tpu_torch.cli import bo
+
+    out = os.path.join(RUN_DIR, "bo_posterior.json")
+    t0 = time.perf_counter()
+    bo.main(_run_paths("smoke_bo_posterior") + [
+        "--posterior_only", "True", "--bo_output", out])
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        post = json.load(f)
+    betas, fids = zip(*REFERENCE_OBSERVATIONS)
+    grid = np.arange(1.0, 151.0)
+    mean, std, ei = gp_posterior(betas, fids, grid)
+    untried = ~np.isin(grid, betas)
+    want_beta = float(grid[untried][np.argmax(ei[untried])])
+    got = {k: np.asarray(post[k]) for k in
+           ("beta", "posterior_mean", "band_low", "band_high",
+            "expected_improvement")}
+    # the band as a variance: at the observed βs the standard deviation is
+    # the square root of rounding-level numbers, which amplifies them
+    got_var = ((got["band_high"] - got["band_low"]) / 4.0) ** 2
+    errs = {"mean": np.abs(got["posterior_mean"] - mean).max(),
+            "band_centre": np.abs((got["band_high"] + got["band_low"]) / 2
+                                  - mean).max(),
+            "variance": np.abs(got_var - std ** 2).max(),
+            "ei": np.abs(got["expected_improvement"] - ei).max()}
+    scale = {"mean": 150.0, "band_centre": 150.0, "variance": 50.0 ** 2,
+             "ei": max(ei.max(), 1.0)}
+    if not np.array_equal(got["beta"], grid) or any(
+            errs[k] > TOL_BO * scale[k] for k in errs):
+        fail(f"bo posterior: the CLI's posterior differs from the GP "
+             f"computed here: max abs errors {errs} (tol {TOL_BO} x {scale})")
+    if post["proposed_beta"] != want_beta:
+        fail(f"bo posterior: proposed beta {post['proposed_beta']}, the GP "
+             f"here proposes {want_beta}")
+    if post["observations"] != [list(o) for o in REFERENCE_OBSERVATIONS]:
+        fail(f"bo posterior: observations {post['observations']}")
+    say(f"[bo] posterior: EI proposes beta {post['proposed_beta']:g} over "
+        f"{grid.size} grid points, as the GP computed here; max abs errors "
+        f"{json.dumps({k: float(v) for k, v in errs.items()})}; wall "
+        f"{wall:.2f} s; card {card}")
+
+
+def bo_search(fl, pin, stats_path: str, card: str) -> tuple:
+    """``cli.bo --posterior_only False``: BO_ITERATIONS β evaluations, each
+    a full-width β-VAE-GAN run of BO_EPOCHS epoch of BO_STEPS steps with
+    FID over N_SAMPLES samples against phase 4's statistics; then
+    ``--bo_parallel 2`` on the one card, which must raise the ValueError
+    naming one visible device. Returns the search's launches and
+    fused_linear by path."""
+    import torch
+
+    from disentangle_mlp_tpu_torch.cli import bo
+
+    name = "smoke_bo"
+    report_path = os.path.join(RUN_DIR, "bo_report.json")
+    argv = _run_paths(name) + [
+        "--device", "cuda", "--posterior_only", "False",
+        "--bo_iterations", str(BO_ITERATIONS), "--bo_epochs",
+        str(BO_EPOCHS), "--synthetic_data", "True",
+        "--synthetic_train_size", str(BO_STEPS * BATCH), "--calc_fid",
+        "True", "--n_samples", str(N_SAMPLES), "--fid_path_pretrained",
+        stats_path, "--checkpoint_every", "0"]
+    _, launches, by_path, wall = count_launches(
+        fl, pin, lambda: bo.main(argv + ["--bo_report", report_path]))
+    with open(report_path) as f:
+        report = json.load(f)
+    with open(os.path.join(RUN_DIR, name, "bo_history.json")) as f:
+        history = json.load(f)
+    cycles = report["cycles"]
+    betas = [c["beta"] for c in cycles]
+    if not (len(cycles) == BO_ITERATIONS and len(set(betas)) == len(betas)
+            and all(1.0 <= b <= 150.0 for b in betas)
+            and all(math.isfinite(c["fid"]) for c in cycles)):
+        fail(f"bo search: cycles {cycles}")
+    if len(history["betas"]) != BO_SEEDS + BO_ITERATIONS or \
+            history["betas"][BO_SEEDS:] != betas:
+        fail(f"bo search: history {history}")
+    if report.get("partial") or not math.isfinite(report["best_fid"]):
+        fail(f"bo search: report {report}")
+    steps = BO_ITERATIONS * BO_EPOCHS * BO_STEPS
+    shapes = [s[:-1] + (s[-1] * steps,) for s in FUSED_LINEAR_SHAPES]
+    check_launches(fl, torch, "bo search", launches, by_path, shapes,
+                   BO_ITERATIONS * BO_EPOCHS)
+    say(f"[bo] search: {BO_ITERATIONS} evaluations of {BO_EPOCHS} epoch x "
+        f"{BO_STEPS} steps at batch {BATCH}, bf16, full width, FID over "
+        f"{N_SAMPLES} samples; cycles "
+        f"{json.dumps([{k: c[k] for k in ('beta', 'fid')} for c in cycles])}"
+        f"; wall seconds per evaluation (train + FID, init included) "
+        f"{[c['train_fid_wall_s'] for c in cycles]}; search wall "
+        f"{wall:.1f} s; history of {len(history['betas'])} observations; "
+        f"best beta {report['best_beta']:g} FID {report['best_fid']:.4f}; "
+        f"devices {report['devices']}; launches {json.dumps(launches)}, "
+        f"fused_linear by path {json.dumps(by_path)}; card {card}")
+    # two groups on one card: the ValueError and nothing else
+    _, group_launches, _, _ = count_launches(fl, pin, lambda: _bo_groups(
+        bo, argv))
+    if any(group_launches.values()):
+        fail(f"bo groups: launches {group_launches} before the refusal")
+    return launches, by_path
+
+
+def _bo_groups(bo, argv: list) -> None:
+    import torch
+
+    n = torch.cuda.device_count()
+    try:
+        bo.main(argv + ["--bo_parallel", "2"])
+    except ValueError as e:
+        if f"must be in [1, {n}] (visible devices)" not in str(e):
+            fail(f"bo groups: ValueError {e!r} does not name the {n} "
+                 f"visible device(s)")
+        say(f"[bo] groups: --bo_parallel 2 on {n} visible device raises "
+            f"ValueError: {e}")
+        return
+    fail("bo groups: --bo_parallel 2 on one card did not raise")
+
+
+def reproduce_run(fl, pin, card: str) -> tuple:
+    """``cli.reproduce`` in its synthetic mode at full default width:
+    statistics of the train split, the real-vs-real calibration, β=25 for
+    REPRO_EPOCHS epochs of REPRO_STEPS steps with FID in the loop against
+    those statistics, the report; each part timed. Then
+    ``--assets_check``. Returns the launches and fused_linear by path."""
+    import contextlib
+    import io
+
+    import torch
+
+    from disentangle_mlp_tpu_torch.cli import reproduce as cli
+    from disentangle_mlp_tpu_torch.eval import reproduce
+    from disentangle_mlp_tpu_torch.train import loop
+
+    name = "smoke_repro"
+    stats = os.path.join(RUN_DIR, "repro_stats.npz")
+    report_path = os.path.join(RUN_DIR, "repro_report.json")
+    argv = _run_paths(name) + [
+        "--device", "cuda", "--synthetic_data", "True",
+        "--epochs", str(REPRO_EPOCHS), "--synthetic_train_size",
+        str(REPRO_STEPS * BATCH), "--stats_images", str(REPRO_STATS),
+        "--calib_images", str(REPRO_CALIB), "--stats_out", stats,
+        "--report_out", report_path, "--checkpoint_every", "0"]
+    parts = {}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts[key] = time.perf_counter() - t0
+            return out
+        return run
+
+    calibration, run_vaegan = reproduce.calibration_fid, loop.run_vaegan
+    reproduce.calibration_fid = timed("calibration", calibration)
+    loop.run_vaegan = timed("train", run_vaegan)
+    try:
+        report, launches, by_path, wall = count_launches(
+            fl, pin, lambda: cli.main(argv))
+    finally:
+        reproduce.calibration_fid, loop.run_vaegan = calibration, run_vaegan
+    with open(report_path) as f:
+        on_disk = json.load(f)
+    finite = all(isinstance(report[k], float) and math.isfinite(report[k])
+                 for k in ("calibration_fid", "final_fid"))
+    curves = all(len(report.get(k, [])) == REPRO_EPOCHS
+                 for k in ("fid_curve", "eec_curve"))
+    if not (os.path.isfile(stats) and report["stats_path"] == stats
+            and finite and curves and on_disk["final_fid"] ==
+            report["final_fid"] and report["inception_pretrained"] is False
+            and report["within_tolerance"] is False
+            and {"curve_ok", "eec_ok", "curve_ratio", "eec_ratio"}
+            <= set(report)):
+        fail(f"reproduce: report {report}")
+    steps = REPRO_EPOCHS * REPRO_STEPS
+    shapes = [s[:-1] + (s[-1] * steps,) for s in FUSED_LINEAR_SHAPES]
+    check_launches(fl, torch, "reproduce", launches, by_path, shapes,
+                   REPRO_EPOCHS)
+    parts["statistics and set-up"] = wall - sum(parts.values())
+    say(f"[reproduce] synthetic, beta 25 (the CLI's default), "
+        f"{REPRO_EPOCHS} epochs x {REPRO_STEPS} steps at batch {BATCH}, "
+        f"bf16, full width: statistics of {report['stats_images']} images, "
+        f"calibration FID {report['calibration_fid']:.4f} over "
+        f"{report['calibration_images']} images, final FID "
+        f"{report['final_fid']:.4f}, FID curve {report['fid_curve']}, Eec "
+        f"curve {report['eec_curve']}, inception_pretrained "
+        f"{report['inception_pretrained']}, within_tolerance "
+        f"{report['within_tolerance']}; seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in parts.items()})}, wall "
+        f"{wall:.1f} s; launches {json.dumps(launches)}, fused_linear by "
+        f"path {json.dumps(by_path)}; card {card}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--name", "smoke_assets", "--assets_check"])
+    assets = json.loads(buf.getvalue())
+    if assets["ready"] is not False:
+        fail(f"reproduce: assets reported ready on a machine without them: "
+             f"{assets}")
+    say(f"[reproduce] assets_check {json.dumps(assets)}")
+    return launches, by_path
+
+
+def reference_tar(path: str) -> dict:
+    """A reference β-VAE-GAN checkpoint at full width, as the reference's
+    new_betavaegan.py:221-228 saves it: random tensors from a seed under
+    the reference's state_dict key names and shapes (models/model.py:
+    381-571), the discriminator behind DataParallel's 'module.' prefix,
+    epoch CONVERT_EPOCH. Returns the two state dicts."""
+    import torch
+
+    gen = torch.Generator().manual_seed(7)
+    rs, hidden, head, n_z = 64, 128, 2048, (256, 8, 8)
+    c1, c2, c3 = 256, 128, 32
+    a, b, c, d = 32, 128, 256, 256
+    feat = 2048
+
+    def conv(sd, key, shape):
+        sd[f"{key}.weight"] = torch.randn(shape, generator=gen) * 0.02
+        sd[f"{key}.bias"] = torch.randn(shape[1] if "deconv" in key
+                                        else shape[0], generator=gen) * 0.02
+
+    def bn(sd, key, n):
+        sd[f"{key}.weight"] = 1.0 + 0.1 * torch.randn(n, generator=gen)
+        sd[f"{key}.bias"] = 0.1 * torch.randn(n, generator=gen)
+        sd[f"{key}.running_mean"] = 0.1 * torch.randn(n, generator=gen)
+        sd[f"{key}.running_var"] = 0.5 + torch.rand(n, generator=gen)
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(1000)
+
+    vae, disc = {}, {}
+    for i, (cin, cout) in enumerate(((3, rs), (rs, 2 * rs),
+                                     (2 * rs, 4 * rs))):
+        conv(vae, f"features.{3 * i}", (cout, cin, 5, 5))
+        bn(vae, f"features.{3 * i + 1}", cout)
+    for head_key in ("x_to_mu", "x_to_logvar"):
+        conv(vae, f"{head_key}.0", (head, 4 * rs * 8 * 8))
+        bn(vae, f"{head_key}.1", head)
+        conv(vae, f"{head_key}.3", (hidden, head))
+    dim = n_z[0] * n_z[1] * n_z[2]
+    conv(vae, "preprocess.0", (dim, hidden))
+    bn(vae, "preprocess.1", dim)
+    for i, (cin, cout) in enumerate(((n_z[0], c1), (c1, c2), (c2, c3)), 1):
+        conv(vae, f"deconv{i}", (cin, cout, 5, 5))
+        bn(vae, f"act{i}.0", cout)
+    conv(vae, "deconv4", (c3, 3, 5, 5))
+    for i, (cin, cout) in enumerate(((3, a), (a, b), (b, c), (c, d))):
+        conv(disc, f"convs.{3 * i}", (cout, cin, 5, 5))
+        bn(disc, f"convs.{3 * i + 1}", cout)
+    conv(disc, "lth_features.0", (feat, d * 8 * 8))
+    conv(disc, "sigmoid_output.0", (1, feat))
+    torch.save({"epoch": CONVERT_EPOCH, "encoder_decoder_model": vae,
+                "discriminator_model": {f"module.{k}": v
+                                        for k, v in disc.items()},
+                "encoder_decoder_optimizer": {},
+                "discriminator_optimizer": {}}, path)
+    return {"vae": vae, "disc": disc}
+
+
+def convert_resume(fl, pin, card: str) -> tuple:
+    """``cli.convert --model betavaegan`` of a full-width reference .tar,
+    the converted leaves checked against the layout rules written out here
+    (OIHW → HWIO; the transposed convolution's (in, out, kh, kw) → HWIO
+    flipped; Linear transposed, its flattened input re-ordered from
+    (C, H, W) to (H, W, C)), fresh Adam state, the .tar's epoch; then the
+    trainer CLI resumes it for one epoch of RESUME_STEPS bf16 steps.
+    Returns the resume's launches and fused_linear by path."""
+    import contextlib
+    import io
+
+    import torch
+
+    from disentangle_mlp_tpu_torch.cli import convert
+    from disentangle_mlp_tpu_torch.cli.train import main as train_main
+    from disentangle_mlp_tpu_torch.utils import msgpack
+
+    tar = os.path.join(RUN_DIR, f"reference_model_{CONVERT_EPOCH}.tar")
+    t0 = time.perf_counter()
+    ref = reference_tar(tar)
+    t_tar = time.perf_counter() - t0
+    out = os.path.join(RUN_DIR, "converted", f"model_{CONVERT_EPOCH}")
+    t0 = time.perf_counter()
+    convert.main(_run_paths("smoke_convert") + [
+        "--model", "betavaegan", "--torch_checkpoint", tar, "--output", out,
+        "--device", "cuda"])
+    t_convert = time.perf_counter() - t0
+    raw = msgpack.load(out)
+    eg, d = raw["states"]["eg"], raw["states"]["d"]
+    lth = ref["disc"]["lth_features.0.weight"]
+    want = {
+        "eg/params/encoder/conv1/kernel":
+            (eg["params"]["encoder"]["conv1"]["kernel"],
+             ref["vae"]["features.0.weight"].permute(2, 3, 1, 0)),
+        "eg/params/decoder/deconv1/kernel":
+            (eg["params"]["decoder"]["deconv1"]["kernel"],
+             ref["vae"]["deconv1.weight"].permute(2, 3, 0, 1).flip(0, 1)),
+        "eg/params/encoder/mu_fc2/kernel":
+            (eg["params"]["encoder"]["mu_fc2"]["kernel"],
+             ref["vae"]["x_to_mu.3.weight"].t()),
+        "d/params/lth_features/kernel":
+            (d["params"]["lth_features"]["kernel"],
+             lth.t().reshape(256, 8, 8, -1).permute(1, 2, 0, 3)
+             .reshape(256 * 64, -1)),
+        "d/batch_stats/bn4/bn/var":
+            (d["batch_stats"]["bn4"]["bn"]["var"],
+             ref["disc"]["convs.10.running_var"]),
+    }
+    differ = [k for k, (g, w) in want.items() if not torch.equal(g, w)]
+    adam = eg["opt_state"]["0"]
+    fresh = int(adam["count"]) == 0 and all(
+        not t.any() for _, t in _tree_leaves(adam["mu"]))
+    if differ or raw["epoch"] != CONVERT_EPOCH or not fresh:
+        fail(f"convert: leaves differ from the layout rules {differ}, epoch "
+             f"{raw['epoch']}, fresh Adam state {fresh}")
+    size = os.path.getsize(out)
+    name = "smoke_resume"
+    argv = _run_paths(name) + [
+        "--model", "betavaegan", "--device", "cuda", "--load_path", out,
+        "--epochs", str(CONVERT_EPOCH + 1), "--synthetic_data", "True",
+        "--synthetic_train_size", str(RESUME_STEPS * BATCH),
+        "--calc_fid", "False", "--checkpoint_every", "0"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result, launches, by_path, wall = count_launches(
+            fl, pin, lambda: train_main(argv))
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("====> Epoch:")]
+    if [ln.split()[2] for ln in lines] != [str(CONVERT_EPOCH)]:
+        fail(f"convert: the resumed run's epoch lines {lines}, expected "
+             f"one of epoch {CONVERT_EPOCH}")
+    values = [result[k] for k in RUN_LOSSES["betavaegan"]] + list(
+        result["step_metrics"].values())
+    if not all(math.isfinite(v) for v in values):
+        fail(f"convert: resumed run's losses {result}")
+    shapes = [s[:-1] + (s[-1] * RESUME_STEPS,) for s in FUSED_LINEAR_SHAPES]
+    check_launches(fl, torch, "convert resume", launches, by_path, shapes, 0)
+    say(f"[convert] reference .tar at full width ({t_tar:.2f} s to write) "
+        f"-> {size / 1e9:.3f} GB checkpoint of epoch {raw['epoch']} in "
+        f"{t_convert:.2f} s (template on the card, fresh Adam state); "
+        f"{len(want)} leaves equal to the layout rules; resumed with "
+        f"--epochs {CONVERT_EPOCH + 1}: {lines[0]}; wall {wall:.1f} s incl. "
+        f"init and load; launches {json.dumps(launches)}, fused_linear by "
+        f"path {json.dumps(by_path)}; card {card}")
+    return launches, by_path
+
+
 def main() -> None:
     try:
         import torch
@@ -1515,6 +1925,11 @@ def main() -> None:
                                       tree, "--synthetic_data", "False",
                                       "--calc_fid", "False"],
             1, fid=False, save=False, card=card))
+        # 12. the β search, the reproduction, the checkpoint conversion
+        bo_posterior(card)
+        runs.append(bo_search(fl, pin, stats_path, card))
+        runs.append(reproduce_run(fl, pin, card))
+        runs.append(convert_resume(fl, pin, card))
         launches = {k: sum(r[0][k] for r in runs) for k in runs[0][0]}
         by_path = {}
         for paths in (r[1] for r in runs):
@@ -1531,7 +1946,7 @@ def main() -> None:
                    card)
     data_color(card)
 
-    # 12. report
+    # 13. report
     by_role = {r["role"]: r for r in rows}
 
     def step(model: str) -> dict:

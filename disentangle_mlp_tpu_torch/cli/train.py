@@ -11,7 +11,8 @@ whatever ``--model`` says (train/families.py; birds needs ``--img_size
 128``, MNIST's idx files ``--input_channels 1``). One ``--load_path``
 resumes training from a checkpoint of either package; for the CelebA
 experiments more than one, or ``--to_train False``, evaluates them
-(cli/evaluate.py).
+(cli/evaluate.py). ``--profile_dir DIR`` writes a ``torch.profiler`` trace
+of the run there (utils/runtime.py), also when the run raises.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Dict
 from ..config import Config, build_arg_parser
 from ..train.families import FAMILY_DATASETS
 from ..train.loop import RUNNERS, resolve_device, run_family
+from ..utils.runtime import setup, teardown
 
 
 def parse(description: str, argv=None):
@@ -43,7 +45,11 @@ def main(argv=None) -> Dict:
     cfg = Config(**kwargs).finalize()
     # a family dataset trains its family whatever --model says
     run = run_family if cfg.dataset in FAMILY_DATASETS else RUNNERS[model]
-    return run(cfg, device=device)
+    setup(cfg.profile_dir, device)
+    try:
+        return run(cfg, device=device)
+    finally:
+        teardown(cfg.profile_dir)
 
 
 if __name__ == "__main__":

@@ -3,10 +3,10 @@
 A copy of ``disentangle_mlp_tpu/config.py`` (``Config``, ``finalize``,
 ``build_arg_parser``) so the port's trainer has the identical flag surface,
 ``%`` path templating and output tree. The port imports nothing of the JAX
-package, so it keeps its own copy. Flags that select TPU machinery
-(``--mesh_shape``, ``--profile_dir``) are accepted for compatibility; the
-port's trainer refuses the values it does not implement yet. The device is
-chosen by the trainer's own ``--device`` flag (cli/train.py).
+package, so it keeps its own copy, with the reference's ``EnvSetter`` and
+``config_from_args``. ``--mesh_shape`` is accepted for compatibility; the
+port's trainer refuses a value above 1 (one device). The device is chosen
+by each CLI's own ``--device`` flag (cli/train.py).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import argparse
 import dataclasses
 import warnings
 from pathlib import Path
-from typing import List
+from typing import List, Optional, Sequence
 
 
 def str2bool(v) -> bool:
@@ -114,8 +114,8 @@ class Config:
     # at the predict-mean floor (round-4 study, ROUND4.md) — so 0 exists
     # only for the destabilization study harnesses.
     synthetic_basis_sigma: float = -1.0
-    # Profiler trace directory of the JAX package; the port's trainer does
-    # not trace yet and refuses a non-empty value.
+    # torch.profiler trace directory of the trainer and the reproduction
+    # (utils/runtime.py); empty = no trace.
     profile_dir: str = ""
     # Keep only the newest N checkpoints (0 = keep all, the reference's
     # behaviour; rotation was the intent of its scratch prototype,
@@ -308,3 +308,23 @@ def build_arg_parser(description: str = "") -> argparse.ArgumentParser:
                    default=d.cache_decoded,
                    choices=["auto", "on", "off"])
     return p
+
+
+class EnvSetter:
+    """Drop-in equivalent of the reference's EnvSetter (envsetter.py:6-98):
+    ``EnvSetter(name).get_parser()`` parses argv into a finalized Config and
+    creates the run directory tree as a side effect."""
+
+    def __init__(self, description: str, argv: Optional[Sequence[str]] = None,
+                 make_dirs: bool = True):
+        ns = build_arg_parser(description).parse_args(argv)
+        self._config = Config(**vars(ns)).finalize(make_dirs=make_dirs)
+
+    def get_parser(self) -> Config:
+        return self._config
+
+
+def config_from_args(argv: Optional[Sequence[str]] = None,
+                     description: str = "",
+                     make_dirs: bool = True) -> Config:
+    return EnvSetter(description, argv=argv, make_dirs=make_dirs).get_parser()

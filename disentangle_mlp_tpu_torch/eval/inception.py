@@ -29,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -333,17 +334,32 @@ class InceptionV3(nn.Module):
         return x.float().mean(dim=(2, 3))  # global average pool
 
 
+_tf32_lock = threading.Lock()
+_tf32_users = 0
+_tf32_prev = True
+
+
 @contextlib.contextmanager
 def _cudnn_tf32_off():
     """float32 convolutions in full float32: PyTorch lets cuDNN use TF32
     by default, whose ~3 significant digits through 94 convolutions are the
-    drift the float32 FID contract refuses (eval/fid.py FEATURE_DTYPE)."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    drift the float32 FID contract refuses (eval/fid.py FEATURE_DTYPE).
+    The flag is global to the process, so concurrent runs (the β search's
+    groups, each scoring FID in its own thread) count their users: the
+    flag goes back only when the last one leaves."""
+    global _tf32_users, _tf32_prev
+    with _tf32_lock:
+        if _tf32_users == 0:
+            _tf32_prev = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_users += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        with _tf32_lock:
+            _tf32_users -= 1
+            if _tf32_users == 0:
+                torch.backends.cudnn.allow_tf32 = _tf32_prev
 
 
 def pool3_features(model: InceptionV3, images01: torch.Tensor,

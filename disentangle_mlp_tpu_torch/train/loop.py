@@ -28,12 +28,13 @@ The data are an image folder (``--image_root_train``: JPEGs decoded and
 resized on the run's device, the uint8 cache on that device, filled ahead
 by the decode warm-up), MNIST's idx files or the synthetic stream; the
 reference statistics a ``.npz`` file or a directory of images. Not ported
-yet, and refused rather than skipped: profiling and multi-device meshes.
+yet, and refused rather than skipped: multi-device meshes.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Optional
@@ -149,6 +150,8 @@ def _maybe_fid(cfg: Config, decode_fn: Callable, epoch: int, path: str,
 # order resolves the epochs' scores in order. DMT_ASYNC_FID=0 scores inline.
 _FID_ASYNC = os.environ.get("DMT_ASYNC_FID", "1") != "0"
 _FID_POOL: Optional[ThreadPoolExecutor] = None
+# runs on several threads (the β search's groups) share the one worker
+_FID_POOL_LOCK = threading.Lock()
 
 
 def _instant_na():
@@ -161,10 +164,11 @@ def _instant_na():
 
 def _fid_pool() -> ThreadPoolExecutor:
     global _FID_POOL
-    if _FID_POOL is None:
-        _FID_POOL = ThreadPoolExecutor(max_workers=1,
-                                       thread_name_prefix="dmt-fid")
-    return _FID_POOL
+    with _FID_POOL_LOCK:
+        if _FID_POOL is None:
+            _FID_POOL = ThreadPoolExecutor(max_workers=1,
+                                           thread_name_prefix="dmt-fid")
+        return _FID_POOL
 
 
 def _maybe_fid_async(cfg: Config, decode_fn: Callable, epoch: int,
@@ -256,8 +260,6 @@ class _EpochEmitter:
 
 
 def _refuse_unported(cfg: Config) -> None:
-    if cfg.profile_dir:
-        raise NotImplementedError("--profile_dir is not yet ported")
     if cfg.mesh_shape > 1:
         raise NotImplementedError("the port trains on one device; "
                                   "--mesh_shape above 1 is not yet ported")

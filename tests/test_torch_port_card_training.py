@@ -15,9 +15,34 @@ differences near g = 0 into ±lr updates. Metrics within rtol 5e-3;
 parameters within atol 6e-3 (rtol 1e-3); a bias that feeds a BatchNorm has
 no true gradient and random-walks on rounding noise: atol 4e-2; running
 statistics atol 2e-2.
+
+The β-VAE-GAN once more in bfloat16 (the port's default compute dtype),
+both freeze modes: every bf16 ``Linear`` launches ``fused_linear`` on the
+card (21 a step, counted) and takes its plain version on the CPU, and the
+convolutions run cuDNN's bf16 kernels against the CPU's. Every layer's
+output is rounded to bf16 (a relative half-ulp of 2⁻⁹ ≈ 2e-3) after sums
+in other orders, so the two devices differ by a rounding or so of each
+activation, not by float32 noise. The tolerances are set by what bf16
+rounding does on one device: on the CPU, the bf16 run of these 3 steps
+differs from the float32 run by up to 1.4e-3 (relative) in the pixel loss
+and D(x), 7.2e-2 in the KL term, 7.5e-2 in the feature-similarity term,
+9.9e-3 in a parameter and 8.6e-2 in a running statistic (measured with
+this file's ``__main__`` on the GPU machine, PERF.md §6). So: the pixel
+loss and D(x) within rtol 1e-2; the KL and similarity terms, sums of squares of differences of bf16
+activations (μ² + σ² − log σ² − 1, (f(x̃) − f(x))²) where cancellation
+amplifies the operands' rounding, within rtol 1e-1; parameters within
+atol 1.2e-2, the bound of Adam itself: an update moves a parameter by at
+most about lr, an 'observed' step updates the VAE twice, so two runs of
+3 steps from one start stay within 2·6·lr whatever their gradients;
+BatchNorm-fed biases 4e-2 as in float32; running statistics 6e-2, under
+the 8.6e-2 that bf16 moves them from float32. Those differences, and the
+card's against the CPU's, are printed by
+
+    PYTHONPATH=. python tests/test_torch_port_card_training.py
 """
 
 import contextlib
+import json
 
 import numpy as np
 import pytest
@@ -29,6 +54,11 @@ from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
 
 STEPS, BATCH, LR = 3, 4, 1e-3
 METRIC_RTOL, PARAM_ATOL, CANCELLED_ATOL, STATS_ATOL = 5e-3, 6e-3, 4e-2, 2e-2
+# the bf16 run's (module docstring): per metric, then the leaves
+BF16_METRIC_RTOL = {"recon_enc": 1e-2, "recon_dec": 1e-2, "dis": 1e-2,
+                    "D_x": 1e-2, "kld": 1e-1, "sim": 1e-1}
+BF16_PARAM_ATOL, BF16_STATS_ATOL = 1.2e-2, 6e-2
+FUSED_LINEAR_PER_STEP = 21  # the β-VAE-GAN step's bf16 Linear calls
 # tests/test_torch_compat.py's toy widths of the β-VAE-GAN
 TOY = dict(n_hidden=16, n_z=[8, 4, 4], representation_size=4, head_width=32,
            decoder_channels=[8, 8, 8], disc_channels=[4, 8, 8, 8],
@@ -57,7 +87,7 @@ def _tf32_off():
          torch.backends.cudnn.allow_tf32) = prev
 
 
-def _make(which):
+def _make(which, dtype="float32"):
     """(config, experiment class, batch, per-step draws) of one case."""
     rng = np.random.default_rng(0)
     if which == "mnist":
@@ -72,7 +102,7 @@ def _make(which):
         return cfg, FamilyExperiment, x, draws
     mode = which.split("_")[1]
     cfg = Config(name=f"card_{which}", batch_size_train=BATCH,
-                 dtype="float32", lr=LR, beta=25.0, freeze_mode=mode, **TOY)
+                 dtype=dtype, lr=LR, beta=25.0, freeze_mode=mode, **TOY)
     x = rng.uniform(-1, 1, (BATCH, 32, 32, 3))
     draws = [{"labels": {"real": 0.9, "fake": 0.1},
               **{k: rng.normal(size=(BATCH, 16))
@@ -90,34 +120,64 @@ def _cancelled(name: str, which: str) -> bool:
     return parts[-2] in BN_CANCELLED
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("which", ["betavaegan_observed", "betavaegan_intent",
-                                   "mnist"])
-def test_port_training_on_the_card_matches_the_cpu(card, which):
-    cfg, make, x, draws = _make(which)
-    runs = {}
+def _train_both(which, dtype="float32"):
+    """The case's steps on the CPU and on the card; returns {device:
+    (experiment, per-step metrics)} and the fused_linear launches the
+    card's steps made."""
+    from disentangle_mlp_tpu_torch.ops import fused_linear
+
+    cfg, make, x, draws = _make(which, dtype)
+    runs, launches = {}, 0
     with _tf32_off():
         for dev in ("cpu", "cuda"):
             exp = make(cfg, dev)  # one seeded initialization on the host
             xt = torch.from_numpy(x.astype(np.float32)).to(dev)
+            before = fused_linear.launches
             metrics = [{k: v.item() for k, v in exp.train_step(
                 xt, draws={k: (v if k == "labels" else
                                np.asarray(v, np.float32))
                            for k, v in d.items()}).items()}
                        for d in draws]
+            launches = fused_linear.launches - before
             runs[dev] = (exp, metrics)
+    return runs, launches
+
+
+def _compare(runs, which, metric_rtol, param_atol, cancelled_atol,
+             stats_atol):
     (cpu, m_cpu), (gpu, m_gpu) = runs["cpu"], runs["cuda"]
     for step, (a, b) in enumerate(zip(m_gpu, m_cpu)):
         for k in b:
-            np.testing.assert_allclose(a[k], b[k], rtol=METRIC_RTOL,
+            rtol = metric_rtol[k] if isinstance(metric_rtol, dict) \
+                else metric_rtol
+            np.testing.assert_allclose(a[k], b[k], rtol=rtol,
                                        err_msg=f"{which} step {step} {k}")
     for (name, p), (_, q) in zip(_modules(gpu), _modules(cpu)):
-        atol = CANCELLED_ATOL if _cancelled(name, which) else PARAM_ATOL
+        atol = cancelled_atol if _cancelled(name, which) else param_atol
         if "running_" in name:
-            atol = STATS_ATOL
+            atol = stats_atol
         np.testing.assert_allclose(p.detach().cpu().numpy(),
                                    q.detach().numpy(), rtol=1e-3, atol=atol,
                                    err_msg=f"{which} {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["betavaegan_observed", "betavaegan_intent",
+                                   "mnist"])
+def test_port_training_on_the_card_matches_the_cpu(card, which):
+    runs, _ = _train_both(which)
+    _compare(runs, which, METRIC_RTOL, PARAM_ATOL, CANCELLED_ATOL,
+             STATS_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["betavaegan_observed", "betavaegan_intent"])
+def test_port_bf16_training_through_fused_linear_matches_the_cpu(card,
+                                                                 which):
+    runs, launches = _train_both(which, "bfloat16")
+    assert launches == FUSED_LINEAR_PER_STEP * STEPS
+    _compare(runs, which, BF16_METRIC_RTOL, BF16_PARAM_ATOL, CANCELLED_ATOL,
+             BF16_STATS_ATOL)
 
 
 def _modules(exp):
@@ -125,3 +185,36 @@ def _modules(exp):
     for net in nets:
         yield from net.named_parameters()
         yield from net.named_buffers()
+
+
+def _largest_differences(ra, rb, which) -> dict:
+    """The largest relative difference of each metric over the steps, and
+    the largest leaf difference beyond rtol 1e-3 of each kind of leaf."""
+    (a, ma), (b, mb) = ra, rb
+    out = {"metric_rel": {k: max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                                 for x, y in zip(ma, mb)) for k in mb[0]},
+           "param": 0.0, "cancelled": 0.0, "stats": 0.0}
+    for (name, p), (_, q) in zip(_modules(a), _modules(b)):
+        q = q.detach().cpu().float()
+        d = ((p.detach().cpu().float() - q).abs() - 1e-3 * q.abs()).clamp(
+            min=0).max().item()
+        kind = ("stats" if "running_" in name else
+                "cancelled" if _cancelled(name, which) else "param")
+        out[kind] = max(out[kind], d)
+    return out
+
+
+if __name__ == "__main__":
+    # the measurements behind the bf16 tolerances (needs a CUDA GPU)
+    for which in ("betavaegan_observed", "betavaegan_intent"):
+        bf16, launches = _train_both(which, "bfloat16")
+        f32, _ = _train_both(which, "float32")
+        print(json.dumps({
+            "which": which, "fused_linear_launches": launches,
+            "card_vs_cpu_bf16": _largest_differences(
+                bf16["cuda"], bf16["cpu"], which),
+            "cpu_bf16_vs_cpu_float32": _largest_differences(
+                bf16["cpu"], f32["cpu"], which),
+            "card_vs_cpu_float32": _largest_differences(
+                f32["cuda"], f32["cpu"], which),
+            "card": torch.cuda.get_device_name(0)}))

@@ -112,12 +112,40 @@ def test_port_checkpoint_rotation_and_resume(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra, error, match", [
-    (["--profile_dir", "x"], NotImplementedError, "not yet ported"),
     (["--mesh_shape", "2"], NotImplementedError, "not yet ported"),
 ])
 def test_port_trainer_refuses_unported_paths(tmp_path, extra, error, match):
     with pytest.raises(error, match=match):
         cli_train.main(_argv(tmp_path, *extra))
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_port_trainer_writes_a_profile_trace(tmp_path, monkeypatch, capsys,
+                                             fails):
+    """--profile_dir: the run's torch.profiler trace is written there, also
+    when the run raises (the trace stopped in a finally, as the JAX
+    package's cli/train.py does)."""
+    profile = tmp_path / "profile"
+    if fails:
+        def boom(*args, **kwargs):
+            raise RuntimeError("deliberate failure mid-run")
+
+        monkeypatch.setattr(cli_train, "RUNNERS",
+                            dict(cli_train.RUNNERS, betavaegan=boom))
+        with pytest.raises(RuntimeError, match="deliberate failure"):
+            cli_train.main(_argv(tmp_path, "--profile_dir", str(profile)))
+    else:
+        out = cli_train.main(_argv(tmp_path, "--epochs", "1",
+                                   "--profile_dir", str(profile)))
+        assert np.isfinite(out["Avg Eec Loss"])
+    (trace,) = profile.glob("trace_*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert fails or any(n.startswith("aten::conv") for n in names)
+    assert f"[profile] trace written to {trace}" in capsys.readouterr().out
+    # the trace is stopped: a second run can trace again
+    from disentangle_mlp_tpu_torch.utils import runtime
+    assert runtime._profiler is None
 
 
 def _family_argv(tmp_path, dataset, *extra):
@@ -279,7 +307,7 @@ bad = sorted(m for m in sys.modules
              or m == "disentangle_mlp_tpu" or m.startswith("disentangle_mlp_tpu.")
              or m.split(".")[0] == "PIL")
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 33 else 0)
+sys.exit(1 if bad or len(names) < 48 else 0)
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
@@ -568,17 +596,27 @@ def test_port_evaluate_sweeps_two_checkpoints_of_one_epoch(
 
 
 @pytest.mark.parametrize("argv", [["--model", "vae"], ["--model", "gan"],
-                                  ["evaluate"]])
+                                  ["evaluate"], ["bo"], ["reproduce"],
+                                  ["convert"]])
 def test_port_new_entry_points_default_to_cuda(tmp_path, monkeypatch, argv):
-    """Without --device cpu the VAE, the GAN and the evaluation sweep ask
-    for CUDA, and raise where it is missing."""
+    """Without --device cpu the VAE, the GAN, the evaluation sweep, the β
+    search, the reproduction and the checkpoint conversion ask for CUDA,
+    and raise where it is missing."""
+    from disentangle_mlp_tpu_torch.cli import bo, convert, reproduce
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    main = cli_evaluate.main if argv == ["evaluate"] else cli_train.main
     base = [a for a in _argv(tmp_path) if a not in ("--device", "cpu")]
-    if main is cli_train.main:
-        base[base.index("--model") + 1] = argv[1]
+    model = base.pop(base.index("--model") + 1)
+    base.remove("--model")
+    main, extra = {
+        "evaluate": (cli_evaluate.main, ["--model", model]),
+        "bo": (bo.main, ["--posterior_only", "False"]),
+        "reproduce": (reproduce.main, ["--skip_train"]),
+        "convert": (convert.main, ["--torch_checkpoint",
+                                   str(tmp_path / "missing.tar")]),
+    }.get(argv[0], (cli_train.main, argv))
     with pytest.raises(RuntimeError, match="cuda"):
-        main(base)
+        main(base + extra)
 
 
 def test_port_evaluate_refuses_family_datasets(tmp_path):
