@@ -24,6 +24,15 @@ Phases, each fatal on failure:
    same function (for ``fused_linear`` two: ``torch.addmm`` on bf16 copies
    made beforehand, and with the casts from the port's float32 weight);
    ``per_image_normalize`` at both FID shapes, with its device-only time;
+   then train/scan.py's CUDA graphs (``[scan]``): for each of the six step
+   kinds at full default width (the β-VAE-GAN in both freeze modes, the
+   VAE, the DCGAN, the birds and MNIST families), from one copied state,
+   4 eager steps twice (the card's run-to-run spread) and one replay of
+   ``make_multi_step`` with K = 4 on the same batches and draws: every
+   metric, parameter, running statistic, Adam moment and count of the
+   graphed run within the eager runs' largest |Δ| of that tensor (or
+   bit-identical where they are), fused_linear launches 4 × 21, 4 × 21,
+   4 × 5, 4 × 7, 0, 0;
 4. FID set-up: reference statistics of 2048 synthetic images through the
    port's ``compute_dataset_statistics``; those images scored against their
    own statistics (|FID| ≈ 0); pool3 on the card against pool3 on the CPU;
@@ -35,11 +44,19 @@ Phases, each fatal on failure:
    without FID; the DCGAN 3 steps with FID over 1000 generated samples.
    Every loss and FID finite, and each kernel's launch count, set to 0 just
    before each run and read just after, equal to what the run's code path
-   launches (fused_linear's also by path);
+   launches (fused_linear's also by path). The trainer runs its first step
+   eagerly and every later one as a replay of the step's CUDA graph, whose
+   capture's launches each replay adds to the counts, and writes its
+   checkpoints with the AsyncCheckpointer (how long ``save()`` blocked and
+   when the file landed);
 6. eval: the evaluation CLI sweeps the 'intent' checkpoint (FID,
    reconstruction, originals and sample grids), its launches checked the
    same way, and the checkpoint restored into a new experiment gives back
-   the saved states bit for bit;
+   the saved states bit for bit; the AsyncCheckpointer on the full-width
+   'intent' state (``[ckpt] async``): the ms ``save()`` blocks against the
+   seconds until the file lands, the file byte-identical to
+   ``save_checkpoint``'s though every state tensor changes right after
+   ``save()`` returns, keep 2 over three saves leaving two files;
    the model families through the trainer CLI at the JAX package's default
    width: birds (batch 256, 128×128×3, n_hidden 128, bf16) 2 epochs of 2
    synthetic steps, FID each epoch over 1000 samples against phase 4's
@@ -69,10 +86,14 @@ Phases, each fatal on failure:
 10. FID statistics of a directory: ``statistics_from_dir`` over the 1000
    sample PNGs phase 7 wrote against statistics of the same uint8 arrays
    in memory, and ``get_fid`` of that directory against the .npz;
-11. the birds and MNIST steps through ``cli/profile_step.py``: ms/step by
-   CUDA events, device busy time, idle share, time by kernel category; the
-   colour fixture decoded on the card (a CMYK, a YCCK, a 4:4:0 and a 4:1:1
-   file) against the host decode, max |Δ| ≤ 6;
+11. the six step kinds through ``cli/profile_step.py --model all``
+   (``[time] graph``): ms/step by CUDA events, device busy time, idle
+   share and kernels a step of the eager step, the one-step graph and
+   ``make_multi_step`` with K = 8, each with the kind's fused_linear
+   launches a step; the birds and MNIST eager rows also as ``[time] birds
+   step`` / ``[time] mnist step`` with time by kernel category; the colour
+   fixture decoded on the card (a CMYK, a YCCK, a 4:4:0 and a 4:1:1 file)
+   against the host decode, max |Δ| ≤ 6;
 12. the β search, the reproduction and the checkpoint conversion through
    their CLIs, at full default width on synthetic data with phase 4's
    statistics: ``cli.bo --posterior_only True`` against the GP computed
@@ -742,24 +763,23 @@ def train(fl, pin, model: str, mode: str, size: int, card: str,
     else:
         argv += ["--calc_fid", "False"]
     saved = {}
-    save_checkpoint = loop.save_checkpoint
+    checkpointer = loop.AsyncCheckpointer
 
-    def timed_save(path, epoch, states, opt_state_dtype=None):
-        states = {k: {part: _tree_map(v[part], torch.clone) for part in v}
-                  for k, v in states.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        save_checkpoint(path, epoch, states, opt_state_dtype)
-        saved.update(path=path, states=states,
-                     seconds=time.perf_counter() - t0,
-                     bytes=os.path.getsize(path))
+    class Recording(checkpointer):
+        """The run's checkpointer, keeping a copy of what it saves."""
 
-    loop.save_checkpoint = timed_save
+        def save(self, path, epoch, states, rotate_keep=0):
+            saved.update(path=path, checkpointer=self, states={
+                k: {part: _tree_map(v[part], torch.clone) for part in v}
+                for k, v in states.items()})
+            super().save(path, epoch, states, rotate_keep)
+
+    loop.AsyncCheckpointer = Recording
     try:
         out, launches, by_path, wall = count_launches(
             fl, pin, lambda: train_main(argv))
     finally:
-        loop.save_checkpoint = save_checkpoint
+        loop.AsyncCheckpointer = checkpointer
     metrics = out["step_metrics"]
     values = [out[k] for k in RUN_LOSSES[model]] + list(metrics.values())
     if not all(math.isfinite(v) for v in values):
@@ -787,8 +807,14 @@ def train(fl, pin, model: str, mode: str, size: int, card: str,
     if save:
         if not saved:
             fail(f"train {model} {mode}: no checkpoint was saved")
-        notes.append(f"checkpoint {saved['bytes'] / 1e9:.3f} GB saved in "
-                     f"{saved['seconds']:.2f} s")
+        last = saved["checkpointer"].last
+        if last.get("path") != saved["path"]:
+            fail(f"train {model} {mode}: the checkpoint did not land")
+        saved.update(bytes=last["bytes"], blocked=last["blocked_s"],
+                     seconds=last["landed_s"])
+        notes.append(f"checkpoint {saved['bytes'] / 1e9:.3f} GB: save() "
+                     f"blocked {saved['blocked'] * 1e3:.1f} ms, the file "
+                     f"landed {saved['seconds']:.2f} s after it")
     rate = out["images_per_sec"]
     say(f"[train] {model} {mode}: {steps} steps at batch {BATCH}, bf16, full "
         f"width; {rate:.1f} img/s, {BATCH / rate * 1e3:.2f} ms/step "
@@ -1383,29 +1409,6 @@ def train_family(fl, pin, label: str, flags: list, epochs: int,
     return launches, by_path, rates
 
 
-def profile_family(dataset: str, flags: list, card: str) -> dict:
-    """One family's step through cli/profile_step.py at full width: ms/step
-    by CUDA events, device busy and idle share, time by kernel category."""
-    from disentangle_mlp_tpu_torch.cli import profile_step
-
-    res = profile_step.main(["--name", f"prof_{dataset}", "--dataset",
-                             dataset, "--calc_fid", "False", "--dtype",
-                             "bfloat16", *flags])
-    if not (math.isfinite(res["ms_per_step"]) and res["ms_per_step"] > 0
-            and res["fused_linear_launches_per_step"] == 0):
-        fail(f"profile {dataset}: {res}")
-    cats = {k: round(v, 4) for k, v in res["by_category_ms_per_step"].items()}
-    say(f"[time] {dataset} step (profile_step, batch {res['batch']}, "
-        f"{res['steps']} steps): {res['ms_per_step']:.3f} ms/step by CUDA "
-        f"events, {res['images_per_sec']:.1f} img/s; device busy "
-        f"{res['device_busy_ms_per_step']:.3f} ms/step, idle share "
-        f"{res['device_idle_share']:.3f}, "
-        f"{res['device_kernels_per_step']:.0f} kernels a step; device ms by "
-        f"category {json.dumps(cats)}; peak "
-        f"{res['peak_memory_gib']:.2f} GiB; card {card}")
-    return res
-
-
 def fid_dir_stats(out_dir: str, u8, stats_path: str, card: str) -> None:
     """statistics_from_dir over the sample PNGs fid_split wrote against
     the statistics of the same uint8 arrays in memory, pool3 in the same
@@ -1836,6 +1839,265 @@ def convert_resume(fl, pin, card: str) -> tuple:
     return launches, by_path
 
 
+# The step kinds of train/scan.py's phases (cli/profile_step.py KINDS): K
+# steps per replay in [scan], and fused_linear's launches per step of each
+# (the β-VAE-GAN's 21, the VAE's 5, the DCGAN's 7; the families' dense
+# layers are float32)
+SCAN_K = 4
+KIND_LAUNCHES = {"betavaegan observed": LAUNCHES_PER_STEP,
+                 "betavaegan intent": LAUNCHES_PER_STEP,
+                 "vae": sum(s[-1] for s in STEP_SHAPES["vae"]),
+                 "gan": sum(s[-1] for s in STEP_SHAPES["gan"]),
+                 "birds": 0, "mnist": 0}
+
+
+def kind_experiment(model: str, overrides: dict, name: str):
+    """One step kind's experiment on the card at full default width (batch
+    256, bf16; the families' dense layers float32) and its synthetic
+    source."""
+    from disentangle_mlp_tpu_torch.cli.profile_step import EXPERIMENTS
+    from disentangle_mlp_tpu_torch.config import Config
+    from disentangle_mlp_tpu_torch.data.pipeline import SyntheticSource
+    from disentangle_mlp_tpu_torch.train.families import FamilyExperiment
+    import torch
+
+    cfg = Config(name=name, batch_size_train=BATCH, dtype="bfloat16",
+                 **overrides).finalize(make_dirs=False)
+    make = FamilyExperiment if model in ("birds", "mnist") else \
+        EXPERIMENTS[model]
+    src = SyntheticSource(size=SCAN_K * BATCH, img_size=cfg.img_size,
+                          channels=cfg.input_channels, seed=cfg.seed)
+    return make(cfg, torch.device("cuda")), src
+
+
+def _state_names(exp) -> dict:
+    """id → name of every parameter and buffer of the experiment's
+    modules (the rest of scan.state_tensors are Adam moments and counts)."""
+    from torch import nn
+
+    names = {}
+    for attr, v in vars(exp).items():
+        if isinstance(v, nn.Module):
+            for n, t in list(v.named_parameters()) + list(
+                    v.named_buffers()):
+                names.setdefault(id(t), f"{attr}.{n}")
+    return names
+
+
+def scan_check(fl, pin, card: str) -> list:
+    """train/scan.py's make_multi_step against the eager step, each of the
+    six step kinds at full default width: from one copied state, SCAN_K
+    eager steps twice on the same batches and draws (the card's run-to-run
+    spread), then one K = SCAN_K replay of the captured graph. Every metric
+    and every parameter, running statistic, Adam moment and count of the
+    graphed run within the largest |Δ| between the two eager runs of that
+    tensor, or bit-identical where the eager runs are; fused_linear's
+    launches of the replay SCAN_K times a step's, by path as planned.
+    cuDNN runs deterministic algorithms here: with its default choice the
+    float32 MNIST step differs from run to run (1e-3 of the loss), and a
+    third run lies as often outside that spread as inside it, tensor by
+    tensor; deterministic, every eager pair is bit-identical, so the check
+    is bit-identity (the five bf16 kinds were bit-identical under the
+    default too). Returns each kind's (launches, fused_linear by path)."""
+    from disentangle_mlp_tpu_torch.cli.profile_step import KINDS
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = []
+    try:
+        for kind in KINDS:
+            out.append(scan_kind(fl, pin, card, *kind))
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def scan_kind(fl, pin, card: str, label: str, model: str,
+              overrides: dict) -> tuple:
+    """scan_check's comparison for one step kind."""
+    from disentangle_mlp_tpu_torch.train.scan import (make_multi_step,
+                                                      state_tensors)
+    import torch
+
+    exp, src = kind_experiment(model, overrides, "smoke_scan")
+    x, _ = src.load_batch(range(SCAN_K * BATCH))
+    batches = torch.from_numpy(x).cuda().reshape(
+        (SCAN_K, BATCH) + x.shape[1:])
+    draws = [exp.draw(BATCH) for _ in range(SCAN_K)]
+    state = state_tensors(exp)
+    # detached copies: a clone of a parameter would keep an autograd
+    # node of the default stream alive into the capture
+    start = [t.detach().clone() for t in state]
+
+    def restore():
+        with torch.no_grad():
+            for t, v in zip(state, start):
+                t.copy_(v)
+
+    def eager():
+        restore()
+        ms = [exp.train_step(batches[i], draws=draws[i])
+              for i in range(SCAN_K)]
+        torch.cuda.synchronize()
+        return ({k: torch.stack([m[k] for m in ms]) for k in ms[0]},
+                [t.detach().clone() for t in state])
+
+    t0 = time.perf_counter()
+    m1, s1 = eager()
+    t_eager = time.perf_counter() - t0
+    m2, s2 = eager()
+    restore()
+    multi = make_multi_step(exp, SCAN_K)
+    t0 = time.perf_counter()
+    multi.capture(batches, draws)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    (mg, launches, by_path, t_replay) = count_launches(
+        fl, pin, lambda: multi(batches, draws))
+    sg = [t.detach().clone() for t in state]
+    names = _state_names(exp)
+    pairs = [(f"metric {k}", m1[k], m2[k], mg[k]) for k in m1] + [
+        (names.get(id(t), f"adam[{i}]"), a, b, g)
+        for i, (t, a, b, g) in enumerate(zip(state, s1, s2, sg))]
+    worse, spread, dist, identical = [], 0.0, 0.0, [0, 0]
+    for name, a, b, g in pairs:
+        d_ee = (a.double() - b.double()).abs().max().item()
+        d_ge = (g.double() - a.double()).abs().max().item()
+        spread, dist = max(spread, d_ee), max(dist, d_ge)
+        identical[0] += d_ee == 0
+        identical[1] += d_ge == 0
+        if d_ge > d_ee:
+            worse.append((name, d_ge, d_ee))
+    if worse:
+        fail(f"[scan] {label}: {len(worse)} of {len(pairs)} tensors of "
+             f"the graphed run outside the eager runs' spread, e.g. "
+             f"(name, |graph - eager|, |eager - eager|) {worse[:4]}")
+    want = SCAN_K * KIND_LAUNCHES[label]
+    want_paths = {} if model in ("birds", "mnist") else {
+        k: SCAN_K * v for k, v in planned_paths(
+            fl, torch, STEP_SHAPES[model]).items()}
+    if launches["fused_linear"] != want or by_path != want_paths:
+        fail(f"[scan] {label}: launches {launches} by path {by_path}, "
+             f"expected fused_linear {want} by path {want_paths}")
+    finite = all(bool(torch.isfinite(v).all()) for v in mg.values())
+    if not finite:
+        fail(f"[scan] {label}: non-finite metrics {mg}")
+    say(f"[scan] {label}: K={SCAN_K} steps per replay at batch {BATCH}, "
+        f"full width; {len(pairs)} tensors (metrics, parameters, "
+        f"running statistics, Adam moments and counts): largest |eager "
+        f"- eager| {spread:.3e}, largest |graph - eager| {dist:.3e}, "
+        f"bit-identical {identical[0]} eager-eager and {identical[1]} "
+        f"graph-eager; launches {json.dumps(launches)}, fused_linear by "
+        f"path {json.dumps(by_path)}; wall: {SCAN_K} eager steps "
+        f"{t_eager * 1e3:.1f} ms, warm-up and capture "
+        f"{t_capture * 1e3:.1f} ms, one replay of {SCAN_K} steps "
+        f"{t_replay * 1e3:.1f} ms; cuDNN deterministic; card {card}")
+    return launches, by_path
+
+
+def ckpt_async(card: str) -> None:
+    """The AsyncCheckpointer on the full-width β-VAE-GAN 'intent' state
+    after one step: the ms save() blocks against the seconds until the file
+    lands (beside the synchronous writer's seconds); the file byte-identical
+    to save_checkpoint's, though every parameter, statistic, moment and
+    count changed right after save() returned; keep 2 over three saves
+    leaves exactly the two newest files."""
+    from disentangle_mlp_tpu_torch.train.scan import state_tensors
+    from disentangle_mlp_tpu_torch.utils.checkpoint import (
+        AsyncCheckpointer, save_checkpoint)
+    import torch
+
+    exp, src = kind_experiment("betavaegan", {"freeze_mode": "intent"},
+                               "smoke_ckpt")
+    x, _ = src.load_batch(range(BATCH))
+    exp.train_step(torch.from_numpy(x).cuda())
+    root = os.path.join(RUN_DIR, "ckpt")
+    models = os.path.join(root, "models")
+    os.makedirs(models, exist_ok=True)
+    sync = os.path.join(root, "sync")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(sync, 1, exp.states())
+    t_sync = time.perf_counter() - t0
+    saver = AsyncCheckpointer()
+    t0 = time.perf_counter()
+    states = exp.states()
+    t_states = time.perf_counter() - t0
+    saver.save(os.path.join(models, "model_1"), 1, states, rotate_keep=2)
+    with torch.no_grad():
+        for t in state_tensors(exp):
+            t.add_(1)
+    del states
+    saver.wait()
+    first = dict(saver.last)
+    with open(sync, "rb") as a, open(first["path"], "rb") as b:
+        if a.read() != b.read():
+            fail("[ckpt] async: the file differs from save_checkpoint's of "
+                 "the state at save()")
+    for n in (2, 3):
+        saver.save(os.path.join(models, f"model_{n}"), n, exp.states(),
+                   rotate_keep=2)
+    saver.wait()
+    left = sorted(os.listdir(models))
+    if left != ["model_2", "model_3"]:
+        fail(f"[ckpt] async: keep 2 left {left}")
+    say(f"[ckpt] async: β-VAE-GAN intent state {first['bytes'] / 1e9:.3f} "
+        f"GB; states() {t_states * 1e3:.1f} ms, save() blocked "
+        f"{first['blocked_s'] * 1e3:.1f} ms, the file landed "
+        f"{first['landed_s']:.3f} s after the call (the synchronous writer: "
+        f"{t_sync:.3f} s); byte-identical to save_checkpoint's though every "
+        f"state tensor changed right after save() returned; keep 2 over 3 "
+        f"saves left {left}; card {card}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def time_graph(card: str) -> dict:
+    """The six step kinds through cli/profile_step.py --model all at full
+    width: ms/step by CUDA events, device busy and idle share, kernels a
+    step, eager against the one-step graph and make_multi_step with K = 8;
+    every variant's fused_linear launches a step as the kind's. Prints the
+    earlier [time] birds / mnist step lines from the eager rows. Returns
+    the rows by kind."""
+    from disentangle_mlp_tpu_torch.cli import profile_step
+
+    rows = profile_step.main(["--name", "prof", "--model", "all",
+                              "--calc_fid", "False", "--dtype", "bfloat16"])
+    by_kind = {}
+    for res in rows:
+        kind, parts = res["kind"], []
+        for v, m in res["variants"].items():
+            if not (math.isfinite(m["ms_per_step"]) and m["ms_per_step"] > 0
+                    and m["fused_linear_launches_per_step"]
+                    == KIND_LAUNCHES[kind]):
+                fail(f"[time] graph {kind} {v}: {m}")
+            parts.append(
+                f"{v} {m['ms_per_step']:.3f} ms/step (busy "
+                f"{m['device_busy_ms_per_step']:.3f}, idle "
+                f"{m['device_idle_share']:.3f}, "
+                f"{m['device_kernels_per_step']:.0f} kernels, peak "
+                f"{m['peak_memory_gib']:.2f} GiB)")
+        say(f"[time] graph {kind} (profile_step, batch {res['batch']}, "
+            f"{res['steps']} steps each): {'; '.join(parts)}; fused_linear "
+            f"{KIND_LAUNCHES[kind]} a step in each; card {card}")
+        by_kind[kind] = res
+    for dataset in ("birds", "mnist"):
+        res = by_kind[dataset]
+        cats = {k: round(v, 4)
+                for k, v in res["by_category_ms_per_step"].items()}
+        say(f"[time] {dataset} step (profile_step eager, batch "
+            f"{res['batch']}, {res['steps']} steps): "
+            f"{res['ms_per_step']:.3f} ms/step by CUDA events, "
+            f"{res['images_per_sec']:.1f} img/s; device busy "
+            f"{res['device_busy_ms_per_step']:.3f} ms/step, idle share "
+            f"{res['device_idle_share']:.3f}, "
+            f"{res['device_kernels_per_step']:.0f} kernels a step; device ms "
+            f"by category {json.dumps(cats)}; peak "
+            f"{res['peak_memory_gib']:.2f} GiB; card {card}")
+    return by_kind
+
+
 def main() -> None:
     try:
         import torch
@@ -1878,19 +2140,22 @@ def main() -> None:
 
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     try:
+        # 3b. the CUDA graphs of train/scan.py against the eager steps
+        runs = scan_check(fl, pin, card)
         # 4. FID set-up
         stats_path = fid_setup(torch)
         # 5. train: the β-VAE-GAN observed with FID, intent saving its
         # checkpoint; the VAE without FID; the DCGAN with FID
-        runs = [train(fl, pin, "betavaegan", "observed", 4 * BATCH, card,
-                      stats_path),
-                train(fl, pin, "betavaegan", "intent", 2 * BATCH, card,
-                      save=True),
-                train(fl, pin, "vae", "observed", 2 * BATCH, card),
-                train(fl, pin, "gan", "observed", 3 * BATCH, card,
-                      stats_path)]
-        # 6. eval: sweep the intent run's checkpoint
-        runs.append(evaluate(fl, pin, runs[1][2], stats_path, card))
+        runs.append(train(fl, pin, "betavaegan", "observed", 4 * BATCH,
+                          card, stats_path))
+        saved = train(fl, pin, "betavaegan", "intent", 2 * BATCH, card,
+                      save=True)
+        runs += [saved, train(fl, pin, "vae", "observed", 2 * BATCH, card),
+                 train(fl, pin, "gan", "observed", 3 * BATCH, card,
+                       stats_path)]
+        # 6. eval: sweep the intent run's checkpoint; the async writer
+        runs.append(evaluate(fl, pin, saved[2], stats_path, card))
+        ckpt_async(card)
         # the families: birds with FID and its checkpoint, MNIST's idx data
         runs.append(train_family(
             fl, pin, "birds", ["--dataset", "birds", "--img_size",
@@ -1940,10 +2205,9 @@ def main() -> None:
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
 
-    # 11. the family steps, profiled; the colour fixture on the card
-    profile_family("birds", ["--img_size", str(BIRDS_IMG)], card)
-    profile_family("mnist", ["--img_size", "28", "--input_channels", "1"],
-                   card)
+    # 11. the six step kinds profiled, eager and graphed; the colour
+    # fixture on the card
+    time_graph(card)
     data_color(card)
 
     # 13. report

@@ -23,14 +23,22 @@ x (M, K), w (K, N), b (N,) or None, ``activation`` in {"none", "relu",
 number of device kernels the path starts; plain-version calls are not
 counted), so a run can show that its dense layers went through the kernel;
 ``path_launches`` splits that count by path.
+
+CUDA graphs (train/scan.py): inside :func:`graph_scope` a call takes its
+split-K scratch from the scope's graph, and while that graph is captured
+its calls record their launches in the scope instead of the counts (a
+capture runs nothing); each replay then adds what the capture recorded
+(:func:`replayed`).
 """
 
 from __future__ import annotations
 
 import array
 import collections
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -54,23 +62,58 @@ DOT_MAX_N = 63
 
 launches = 0
 path_launches: collections.Counter = collections.Counter()
+Scratch = Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]]
 # Split-K scratch of each (device, stream), grown on demand: the float32
 # partials and two int32 barrier words a 128 × 256 output tile, which the
 # kernel leaves ready for the next launch. Launches on one stream run in
 # order, so a call's partials are read before the next call on that stream
 # writes its own.
-_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_scratch: Scratch = {}
 
 
-def _split_scratch(dev: torch.device, stream: int, ws_bytes: int,
-                   tiles: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    ws, bars = _scratch.get((dev.index, stream), (None, None))
+class GraphScope:
+    """What one CUDA graph owns of this kernel: its split-K scratch, which
+    the warm-up allocates on the capture stream before the capture (so two
+    graphs, or a graph and eager calls, never share one), and the launches
+    by path that its capture recorded."""
+
+    def __init__(self):
+        self.scratch: Scratch = {}
+        self.path_launches: collections.Counter = collections.Counter()
+
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def graph_scope(scope: GraphScope, capturing: bool = False):
+    """Calls on this thread use ``scope``'s scratch; with ``capturing``
+    their launches are recorded in the scope, not counted."""
+    prev = getattr(_local, "scope", None)
+    _local.scope = (scope, capturing)
+    try:
+        yield
+    finally:
+        _local.scope = prev
+
+
+def replayed(scope: GraphScope) -> None:
+    """Count the launches of one replay of ``scope``'s graph."""
+    global launches
+    launches += sum(scope.path_launches.values())
+    path_launches.update(scope.path_launches)
+
+
+def _split_scratch(store: Scratch, dev: torch.device, stream: int,
+                   ws_bytes: int, tiles: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    ws, bars = store.get((dev.index, stream), (None, None))
     if ws is None or ws.numel() * 4 < ws_bytes or bars.numel() < 2 * tiles:
         ws = torch.empty(max(ws_bytes // 4, ws.numel() if ws is not None
                              else 0), dtype=torch.float32, device=dev)
         bars = torch.zeros(max(2 * tiles, bars.numel() if bars is not None
                                else 0), dtype=torch.int32, device=dev)
-        _scratch[dev.index, stream] = ws, bars
+        store[dev.index, stream] = ws, bars
     return ws, bars
 
 
@@ -214,10 +257,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     p = force or plan(m, n, k, x.dtype, w.dtype, w_nk, (xp | wp) % 16 == 0,
                       _num_sms(index))
     stream = torch._C._cuda_getCurrentRawStream(index)
+    scope, capturing = getattr(_local, "scope", None) or (None, False)
     ws = bars = 0
     if p.workspace_bytes:
         ws_t, bars_t = _split_scratch(
-            dev, stream, p.workspace_bytes,
+            _scratch if scope is None else scope.scratch, dev, stream,
+            p.workspace_bytes,
             -(-m // STREAM_TILE_M) * -(-n // STREAM_TILE_N))
         ws, bars = ws_t.data_ptr(), bars_t.data_ptr()
     args = array.array("q", (
@@ -228,8 +273,11 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"fused_linear kernel launch failed: code {err} "
                            f"(M={m}, N={n}, K={k}, {p})")
-    launches += 1
-    path_launches[p.path] += 1
+    if capturing:
+        scope.path_launches[p.path] += 1
+    else:
+        launches += 1
+        path_launches[p.path] += 1
     return y
 
 

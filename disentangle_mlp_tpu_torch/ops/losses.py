@@ -37,6 +37,11 @@ def _log1m_clamped(p: torch.Tensor) -> torch.Tensor:
 
 
 def _targets_like(targets, like: torch.Tensor) -> torch.Tensor:
+    """``targets`` broadcast to ``like``'s shape. The training steps pass
+    0-d float32 tensors on ``like``'s device (train.common.label_tensor),
+    which go through without a copy; a Python float becomes a tensor here,
+    which on CUDA is a host-to-device copy (refused inside a CUDA graph's
+    capture)."""
     return torch.as_tensor(targets, dtype=torch.float32,
                            device=like.device).expand(like.shape)
 

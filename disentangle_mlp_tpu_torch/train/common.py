@@ -6,7 +6,13 @@
 parameter of the list takes a step each call (a missing gradient counts as
 zero), and the bias corrections use one shared step count, as optax does.
 ``moment_dtype=torch.bfloat16`` is the opt-in compact mode: moments are
-stored in bf16 and all arithmetic is float32.
+stored in bf16 and all arithmetic is float32. The count is a 0-d int32
+tensor on the parameters' device, as optax keeps it, and the bias
+corrections are computed from it there: a step reads nothing from the host,
+so a CUDA graph of it (train/scan.py) stays right at every replay.
+
+:func:`label_tensor` makes a step's label pair a device tensor, so that the
+losses never copy a Python float to the device.
 
 :func:`sampling` is how every experiment decodes, generates and
 reconstructs: BatchNorm in train mode, as the JAX package samples, with the
@@ -16,9 +22,8 @@ running-statistics update that train mode makes put back afterwards.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Union
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -86,7 +91,8 @@ class Adam:
         self.params: List[torch.Tensor] = list(params)
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.moment_dtype = moment_dtype
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.int32,
+                                 device=self.params[0].device)
         self.mu = [torch.zeros_like(p, dtype=moment_dtype)
                    for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=moment_dtype)
@@ -107,11 +113,11 @@ class Adam:
         torch._foreach_add_(mu, g, alpha=1.0 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
-        self.count += 1
-        # bias corrections in float32, as optax computes them
-        n = np.float32(self.count)
-        bc1 = float(np.float32(1.0) - np.float32(b1) ** n)
-        bc2 = float(np.float32(1.0) - np.float32(b2) ** n)
+        self.count.add_(1)
+        # bias corrections in float32 on the device, as optax computes them
+        n = self.count.float()
+        bc1 = 1.0 - torch.pow(b1, n)
+        bc2 = 1.0 - torch.pow(b2, n)
         den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
@@ -123,6 +129,10 @@ class Adam:
             for dst, src in zip(self.mu + self.nu, mu + nu):
                 dst.copy_(src)
 
+    def state_tensors(self) -> List[torch.Tensor]:
+        """The tensors a step updates in place: moments and count."""
+        return self.mu + self.nu + [self.count]
+
 
 def sample_labels(generator: torch.Generator) -> Dict[str, float]:
     """Stochastic label smoothing/flipping, one draw per batch:
@@ -131,3 +141,19 @@ def sample_labels(generator: torch.Generator) -> Dict[str, float]:
     u_real, u_fake = torch.rand(2, generator=generator).tolist()
     return {"real": 0.1 if u_real < 0.05 else 0.9,
             "fake": 0.1 if u_fake < 0.95 else 0.9}
+
+
+def label_tensor(labels: Union[Dict[str, float], torch.Tensor],
+                 device: torch.device) -> torch.Tensor:
+    """A step's (real, fake) labels as a (2,) float32 tensor on ``device``:
+    a tensor as it is (moved if it lies elsewhere), a :func:`sample_labels`
+    dict through pinned memory by a non-blocking copy on CUDA. The caching
+    host allocator keeps each pinned buffer until its copy has run, so the
+    host never overwrites a buffer that a queued copy still reads."""
+    if isinstance(labels, torch.Tensor):
+        return labels.to(device=device, dtype=torch.float32)
+    host = torch.tensor([labels["real"], labels["fake"]],
+                        dtype=torch.float32)
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)

@@ -40,8 +40,8 @@ from ..models.mnist import (LATENT_CHANNELS, MnistDiscriminator,
 from ..models.resnet import load_torch_checkpoint
 from ..ops.losses import bce_logits, reconstruction_loss
 from ..utils.params import adam_from_jax, adam_to_jax
-from .common import (DTYPES, Adam, frozen, grads, load_model_state,
-                     model_state, sample_labels, sampling)
+from .common import (DTYPES, Adam, frozen, grads, label_tensor,
+                     load_model_state, model_state, sample_labels, sampling)
 
 FAMILY_DATASETS = ("birds", "mnist")
 
@@ -125,8 +125,8 @@ class FamilyExperiment:
             return torch.randn((batch_size, self.z_dim),
                                generator=self.noise_gen, device=self.device)
 
-        return {"labels": sample_labels(self.label_gen), "z_prior": normal(),
-                "eps": normal()}
+        labels = label_tensor(sample_labels(self.label_gen), self.device)
+        return {"labels": labels, "z_prior": normal(), "eps": normal()}
 
     def _d(self, x: torch.Tensor) -> torch.Tensor:
         return self.discriminator(x, train=True, return_logits=True)[0]
@@ -137,8 +137,7 @@ class FamilyExperiment:
         float32 ``batch``; returns {loss, errD, recon, D_x} as 0-d float32
         tensors on the device."""
         draws = draws or self.draw(batch.shape[0])
-        real_l = draws["labels"]["real"]
-        fake_l = draws["labels"]["fake"]
+        real_l, fake_l = label_tensor(draws["labels"], self.device)
         z_prior, eps = (torch.as_tensor(draws[k], dtype=torch.float32,
                                         device=self.device)
                         for k in ("z_prior", "eps"))

@@ -26,8 +26,8 @@ from ..config import Config
 from ..models.gan import DiscriminatorCeleba, GeneratorCeleba
 from ..ops.losses import bce_logits
 from ..utils.params import adam_from_jax, adam_to_jax
-from .common import (DTYPES, Adam, frozen, grads, load_model_state,
-                     model_state, sample_labels, sampling)
+from .common import (DTYPES, Adam, frozen, grads, label_tensor,
+                     load_model_state, model_state, sample_labels, sampling)
 
 
 class GANExperiment:
@@ -65,7 +65,8 @@ class GANExperiment:
 
     def draw(self, batch_size: int) -> Dict:
         """One step's random draws: labels and noise."""
-        return {"labels": sample_labels(self.label_gen),
+        labels = label_tensor(sample_labels(self.label_gen), self.device)
+        return {"labels": labels,
                 "noise": torch.randn((batch_size, self.cfg.n_hidden),
                                      generator=self.noise_gen,
                                      device=self.device)}
@@ -79,8 +80,7 @@ class GANExperiment:
         {errD, errG, D_x, D_G_z1, D_G_z2} as 0-d float32 tensors on the
         device."""
         draws = draws or self.draw(batch.shape[0])
-        real_l = draws["labels"]["real"]
-        fake_l = draws["labels"]["fake"]
+        real_l, fake_l = label_tensor(draws["labels"], self.device)
         noise = torch.as_tensor(draws["noise"], dtype=torch.float32,
                                 device=self.device)
 

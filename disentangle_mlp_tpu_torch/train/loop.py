@@ -24,6 +24,15 @@ record are emitted when the next epoch ends (the last at loop exit).
 Values and record order are those of inline scoring; DMT_ASYNC_FID=0
 scores inline.
 
+On a CUDA device each training step is one replay of a CUDA graph of the
+experiment's step (train/scan.py), captured after the run's first step,
+which runs eagerly on the capture stream; the step's random draws are made
+from the experiment's generators as an eager step makes them, and copied
+into the graph. On the CPU the steps run eagerly. Checkpoints are written
+by an :class:`AsyncCheckpointer`: ``save`` snapshots the state on the
+device and returns, a worker thread writes the file and then rotates; the
+run waits for it before the evaluation sweep and before it returns.
+
 The data are an image folder (``--image_root_train``: JPEGs decoded and
 resized on the run's device, the uint8 cache on that device, filled ahead
 by the decode warm-up), MNIST's idx files or the synthetic stream; the
@@ -47,11 +56,11 @@ from ..eval import fid as fid_mod
 from ..eval.samples import (_sample_latents, gen_reconstructions,
                             generate_fid_samples, generate_samples,
                             write_sample_files)
-from ..utils.checkpoint import (load_checkpoint, rotate_checkpoints,
-                                save_checkpoint)
+from ..utils.checkpoint import AsyncCheckpointer, load_checkpoint
 from ..utils.logger import Logger
 from .families import FamilyExperiment
 from .gan import GANExperiment
+from .scan import MultiStep, make_multi_step
 from .vae import VAEExperiment
 from .vaegan import VAEGANExperiment
 
@@ -79,7 +88,9 @@ def _ckpt_due(cfg: Config, epoch: int) -> bool:
 class Throughput:
     """images/sec meter. The first ``warmup`` batches are excluded (the
     clock starts once they have finished on the device, via ``sync``), and
-    the loop pauses it around non-train work such as checkpoint writes."""
+    the loop pauses it around non-train work such as checkpoint writes. A
+    pause waits for the device too: graph replays return long before the
+    steps they queue have run."""
 
     def __init__(self, warmup: int = 1,
                  sync: Optional[Callable[[], None]] = None):
@@ -102,6 +113,8 @@ class Throughput:
 
     def pause(self):
         if self.start is not None and self._paused_at is None:
+            if self.sync is not None:
+                self.sync()
             self._paused_at = time.perf_counter()
 
     def resume(self):
@@ -292,11 +305,27 @@ class _Run:
         self.meter = Throughput(sync=torch.cuda.synchronize
                                 if self.device.type == "cuda" else None)
         self.emitter = _EpochEmitter(self.logger)
+        self.checkpointer = AsyncCheckpointer(cfg.checkpoint_save_dtype)
+        self.graph: Optional[MultiStep] = None
         self.m: Dict = {}
 
     def epochs(self):
         return range(self.start_epoch, self.cfg.epochs) if self.cfg.to_train \
             else range(0)
+
+    def step(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One training step on ``x``: eager on the CPU; on CUDA the run's
+        first step eagerly on the capture stream, then the one-step graph
+        captured after it, replayed for every later step."""
+        if self.device.type != "cuda":
+            return self.exp.train_step(x)
+        draws = [self.exp.draw(x.shape[0])]
+        if self.graph is None:
+            self.graph = make_multi_step(self.exp, 1)
+            m = self.graph.step_and_capture(x[None], draws)
+        else:
+            m = self.graph(x[None], draws)
+        return {k: v[0] for k, v in m.items()}
 
     def train_epoch(self, keys, progress: Optional[Callable] = None
                     ) -> Dict[str, float]:
@@ -307,7 +336,7 @@ class _Run:
         self.meter.resume()
         sums = None
         for i, (x, _) in enumerate(self.train_loader):
-            self.m = self.exp.train_step(x)
+            self.m = self.step(x)
             keep = {k: self.m[k] for k in keys}
             sums = keep if sums is None else \
                 {k: sums[k] + keep[k] for k in sums}
@@ -319,14 +348,17 @@ class _Run:
         return {k: float(v) / n for k, v in sums.items()}
 
     def checkpoint(self, epoch: int) -> None:
+        """Snapshot the state and return; the worker writes the file, then
+        keeps the newest ``keep_checkpoints``."""
         cfg = self.cfg
         if _ckpt_due(cfg, epoch):
-            save_checkpoint(f"{cfg.model_path}/model_{epoch + 1}", epoch + 1,
-                            self.exp.states(), cfg.checkpoint_save_dtype)
-            rotate_checkpoints(cfg.model_path, cfg.keep_checkpoints)
+            self.checkpointer.save(f"{cfg.model_path}/model_{epoch + 1}",
+                                   epoch + 1, self.exp.states(),
+                                   rotate_keep=cfg.keep_checkpoints)
 
     def finish(self, sample_fn: Callable, recon_fn: Optional[Callable]
                ) -> Dict:
+        self.checkpointer.wait()
         last = self.emitter.finish()
         last["sweep"] = _eval_sweep(self.cfg, self.exp, sample_fn, recon_fn,
                                     self.test_loader, self.device)
@@ -484,6 +516,7 @@ def run_family(cfg: Config, logger: Optional[Logger] = None,
             f"====> Epoch: {epoch} Average loss: {loss:.4f} "
             f"(recon {recon:.4f}) FID: {{fid}} "
             f"({run.meter.rate():.1f} img/s)")
+    run.checkpointer.wait()
     last = run.emitter.finish()
     last["images_per_sec"] = run.meter.rate()
     last["step_metrics"] = {k: float(v) for k, v in run.m.items()}

@@ -39,8 +39,8 @@ from ..models.gan import DiscriminatorCeleba
 from ..models.vae import VAE
 from ..ops.losses import bce_logits, kld, reconstruction_loss, sim_loss
 from ..utils.params import adam_from_jax, adam_to_jax
-from .common import (DTYPES, Adam, frozen, grads, load_model_state,
-                     model_state, sample_labels)
+from .common import (DTYPES, Adam, frozen, grads, label_tensor,
+                     load_model_state, model_state, sample_labels)
 from .vae import VAESampling
 
 
@@ -95,8 +95,9 @@ class VAEGANExperiment(VAESampling):
             return torch.randn(shape, generator=self.noise_gen,
                                device=self.device)
 
-        return {"labels": sample_labels(self.label_gen), "noise": normal(),
-                "eps_dec": normal(), "eps_enc": normal()}
+        labels = label_tensor(sample_labels(self.label_gen), self.device)
+        return {"labels": labels, "noise": normal(), "eps_dec": normal(),
+                "eps_enc": normal()}
 
     def _d(self, x: torch.Tensor):
         return self.discriminator(x, train=True, return_logits=True)
@@ -107,8 +108,7 @@ class VAEGANExperiment(VAESampling):
         metrics as 0-d float32 tensors on the device."""
         beta = self.beta if beta is None else beta
         draws = draws or self.draw(batch.shape[0])
-        real_l = draws["labels"]["real"]
-        fake_l = draws["labels"]["fake"]
+        real_l, fake_l = label_tensor(draws["labels"], self.device)
         noise, eps_dec, eps_enc = (
             torch.as_tensor(draws[k], dtype=torch.float32, device=self.device)
             for k in ("noise", "eps_dec", "eps_enc"))

@@ -16,12 +16,18 @@ on the device, before the copy to the host); a restore casts them back to
 the run's ``--optimizer_dtype`` and says so, as the JAX package does.
 Parameters and batch statistics are never cast: a dtype that differs
 there is an error.
+
+:class:`AsyncCheckpointer` is the JAX package's: ``save`` snapshots the
+state on the device and returns, and a worker thread copies it to the
+host, writes the file and only then rotates.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import threading
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -41,28 +47,109 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def _cast_opt_state(states: Dict[str, Any], opt_state_dtype: Optional[str]
+                    ) -> Dict[str, Any]:
+    """``states`` with the float32 optimizer leaves cast to
+    ``opt_state_dtype`` (where it is bfloat16), on their device."""
+    target = _DTYPES[opt_state_dtype or "float32"]
+    if target == torch.float32:
+        return states
+
+    def cast(t: torch.Tensor) -> torch.Tensor:
+        return t.to(target) if t.dtype == torch.float32 else t
+
+    return {name: dict(state, opt_state=_map(state["opt_state"], cast))
+            for name, state in states.items()}
+
+
 def save_checkpoint(path: str, epoch: int, states: Dict[str, Any],
                     opt_state_dtype: Optional[str] = None) -> str:
     """Write {epoch, states} to ``path`` atomically (temp file, rename).
     ``opt_state_dtype='bfloat16'`` stores the float32 optimizer leaves in
     bf16."""
-    target = _DTYPES[opt_state_dtype or "float32"]
-
-    def cast(t: torch.Tensor) -> torch.Tensor:
-        return t.to(target) if t.dtype == torch.float32 else t
-
-    out = {}
-    for name, state in states.items():
-        state = dict(state)
-        if target != torch.float32:
-            state["opt_state"] = _map(state["opt_state"], cast)
-        out[name] = _map(state, lambda t: t.detach().cpu())
+    states = _cast_opt_state(states, opt_state_dtype)
+    out = {name: _map(state, lambda t: t.detach().cpu())
+           for name, state in states.items()}
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         msgpack.dump({"epoch": epoch, "states": out}, f)
     os.replace(tmp, path)
     return path
+
+
+class AsyncCheckpointer:
+    """Overlapped checkpoint writes, single flight (the JAX package's
+    utils/checkpoint.py ``AsyncCheckpointer``).
+
+    ``save`` waits for the previous save, casts the moments on the device
+    under ``opt_state_dtype='bfloat16'``, clones every tensor of ``states``
+    on its device (the port's steps update the live tensors in place, so
+    the file must be written from a copy) and records an event, and
+    returns. A worker thread with its own CUDA stream waits on that event,
+    copies the snapshot to the host and writes it through
+    :func:`save_checkpoint` (temp file, rename); only after the file has
+    landed does it keep the newest ``rotate_keep`` files. The file is
+    byte-identical to ``save_checkpoint``'s. An error of the worker is
+    raised by the next ``save`` or ``wait``. ``last`` holds the latest
+    save's path, size, the seconds ``save`` blocked and the seconds from
+    its call until the file landed."""
+
+    def __init__(self, opt_state_dtype: Optional[str] = None):
+        self._opt_state_dtype = opt_state_dtype
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.last: Dict[str, Any] = {}
+
+    def save(self, path: str, epoch: int, states: Dict[str, Any],
+             rotate_keep: int = 0) -> None:
+        t0 = time.perf_counter()
+        self.wait()
+        snap = _map(_cast_opt_state(states, self._opt_state_dtype),
+                    lambda t: t.detach().clone())
+        leaf = next(_leaves(snap), None)
+        event = None
+        if leaf is not None and leaf.is_cuda:
+            event = torch.cuda.Event()
+            event.record()
+        blocked = time.perf_counter() - t0
+
+        def worker():
+            try:
+                if event is None:
+                    save_checkpoint(path, epoch, snap)
+                else:
+                    stream = torch.cuda.Stream(leaf.device)
+                    with torch.cuda.stream(stream):
+                        stream.wait_event(event)
+                        save_checkpoint(path, epoch, snap)
+                landed = time.perf_counter() - t0
+                rotate_checkpoints(os.path.dirname(path), rotate_keep)
+                self.last = {"path": path, "bytes": os.path.getsize(path),
+                             "blocked_s": blocked, "landed_s": landed}
+            except BaseException as e:  # raised by the next save or wait
+                self._error = e
+
+        self._thread = threading.Thread(target=worker, daemon=True,
+                                        name="dmt-checkpoint")
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Until the save in flight has landed; raises its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _check_structure(template, tree, where: str) -> None:

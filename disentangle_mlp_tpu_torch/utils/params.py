@@ -254,9 +254,8 @@ def adam_to_jax(opt, module: nn.Module) -> Tree:
     tree, "nu": tree}, "1": {}}`` (scale_by_adam's state, then the empty
     state of the learning-rate scale), moments in the flax layout."""
     index = _moment_index(opt, module)
-    dev = opt.params[0].device if opt.params else None
     return {"0": {
-        "count": torch.tensor(opt.count, dtype=torch.int32, device=dev),
+        "count": opt.count.detach(),
         "mu": flax_tree(module, lambda p: opt.mu[index[id(p)]]),
         "nu": flax_tree(module, lambda p: opt.nu[index[id(p)]]),
     }, "1": {}}
@@ -264,14 +263,16 @@ def adam_to_jax(opt, module: nn.Module) -> Tree:
 
 def adam_from_jax(opt, module: nn.Module, state: Tree) -> None:
     """The inverse of :func:`adam_to_jax`: the step count and both moments
-    into ``opt``, each moment cast to the optimizer's moment dtype."""
+    copied into ``opt``'s tensors in place (a CUDA graph of the step holds
+    their addresses), each moment cast to the optimizer's moment dtype."""
     index = _moment_index(opt, module)
     s = state["0"]
     load_flax_tree(module, s["mu"], lambda p: opt.mu[index[id(p)]],
                    "Adam mu")
     load_flax_tree(module, s["nu"], lambda p: opt.nu[index[id(p)]],
                    "Adam nu")
-    opt.count = int(s["count"])
+    with torch.no_grad():
+        opt.count.copy_(torch.as_tensor(s["count"]).reshape(()))
 
 
 def inception_from_jax(params: Tree) -> InceptionV3:

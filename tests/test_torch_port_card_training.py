@@ -7,6 +7,13 @@ without one; they import neither PIL nor the JAX package:
 
     python -m pytest tests/test_torch_port_card_training.py -m cuda -q
 
+Then, on the card only, the CUDA graphs of train/scan.py: each experiment's
+3 steps (both β-VAE-GAN freeze modes, in float32 and once in bf16 through
+fused_linear, the VAE, the DCGAN, the birds and MNIST families) replayed
+from a graph against the same steps run eagerly twice (the graphed run
+within the two eager runs' difference, tensor by tensor), and the
+AsyncCheckpointer writing card tensors.
+
 Tolerances: those the port is held to against the JAX package on the CPU
 (tests/test_torch_trajectory.py, a step that updates every parameter): the
 two devices sum the same float32 products in other orders (cuDNN's and
@@ -50,6 +57,9 @@ import torch
 
 from disentangle_mlp_tpu_torch.config import Config
 from disentangle_mlp_tpu_torch.train.families import FamilyExperiment
+from disentangle_mlp_tpu_torch.train.gan import GANExperiment
+from disentangle_mlp_tpu_torch.train.scan import state_tensors
+from disentangle_mlp_tpu_torch.train.vae import VAEExperiment
 from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
 
 STEPS, BATCH, LR = 3, 4, 1e-3
@@ -87,9 +97,40 @@ def _tf32_off():
          torch.backends.cudnn.allow_tf32) = prev
 
 
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 def _make(which, dtype="float32"):
     """(config, experiment class, batch, per-step draws) of one case."""
     rng = np.random.default_rng(0)
+    if which == "birds":
+        cfg = Config(name="card_birds", dataset="birds", img_size=128,
+                     n_hidden=16, batch_size_train=BATCH, dtype=dtype,
+                     lr=LR, beta=1.0)
+        x = rng.uniform(-1, 1, (BATCH, 128, 128, 3))
+        draws = [{"labels": {"real": 0.9, "fake": 0.1},
+                  "z_prior": rng.normal(size=(BATCH, 16)),
+                  "eps": rng.normal(size=(BATCH, 16))} for _ in range(STEPS)]
+        return cfg, FamilyExperiment, x, draws
+    if which in ("vae", "gan"):
+        cfg = Config(name=f"card_{which}", batch_size_train=BATCH,
+                     dtype=dtype, lr=LR, **TOY)
+        x = rng.uniform(-1, 1, (BATCH, 32, 32, 3))
+        if which == "vae":
+            draws = [{"eps": rng.normal(size=(BATCH, 16))}
+                     for _ in range(STEPS)]
+            return cfg, VAEExperiment, x, draws
+        draws = [{"labels": {"real": 0.9, "fake": 0.1},
+                  "noise": rng.normal(size=(BATCH, 16))}
+                 for _ in range(STEPS)]
+        return cfg, GANExperiment, x, draws
     if which == "mnist":
         cfg = Config(name="card_mnist", dataset="mnist", img_size=28,
                      input_channels=1, batch_size_train=BATCH,
@@ -100,7 +141,7 @@ def _make(which, dtype="float32"):
                   "z_prior": rng.normal(size=(BATCH, z)),
                   "eps": rng.normal(size=(BATCH, z))} for _ in range(STEPS)]
         return cfg, FamilyExperiment, x, draws
-    mode = which.split("_")[1]
+    mode = which.split("_")[1]  # betavaegan_<freeze mode>[_bf16]
     cfg = Config(name=f"card_{which}", batch_size_train=BATCH,
                  dtype=dtype, lr=LR, beta=25.0, freeze_mode=mode, **TOY)
     x = rng.uniform(-1, 1, (BATCH, 32, 32, 3))
@@ -115,7 +156,7 @@ def _cancelled(name: str, which: str) -> bool:
     parts = name.split(".")
     if parts[-1] != "bias":
         return False
-    if which == "mnist":
+    if which in ("mnist", "birds"):
         return parts[-2].startswith("Conv_")
     return parts[-2] in BN_CANCELLED
 
@@ -156,8 +197,9 @@ def _compare(runs, which, metric_rtol, param_atol, cancelled_atol,
         atol = cancelled_atol if _cancelled(name, which) else param_atol
         if "running_" in name:
             atol = stats_atol
-        np.testing.assert_allclose(p.detach().cpu().numpy(),
-                                   q.detach().numpy(), rtol=1e-3, atol=atol,
+        np.testing.assert_allclose(p.detach().cpu().float().numpy(),
+                                   q.detach().cpu().float().numpy(),
+                                   rtol=1e-3, atol=atol,
                                    err_msg=f"{which} {name}")
 
 
@@ -181,10 +223,127 @@ def test_port_bf16_training_through_fused_linear_matches_the_cpu(card,
 
 
 def _modules(exp):
-    nets = (exp.vae, exp.discriminator)
-    for net in nets:
-        yield from net.named_parameters()
-        yield from net.named_buffers()
+    for attr in ("vae", "generator", "discriminator"):
+        net = getattr(exp, attr, None)
+        if net is not None:
+            yield from net.named_parameters()
+            yield from net.named_buffers()
+
+
+def _device_draws(d, dev):
+    return {k: v if k == "labels" else
+            torch.as_tensor(np.asarray(v, np.float32), device=dev)
+            for k, v in d.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["betavaegan_observed", "betavaegan_intent",
+                                   "betavaegan_observed_bf16", "vae", "gan",
+                                   "birds", "mnist"])
+def test_port_graphed_steps_match_the_eager_steps_on_the_card(card, which):
+    """make_multi_step's CUDA graph of the case's 3 steps against the same
+    3 steps run eagerly, twice, on the card, from one initialization with
+    the same draws (float32 with TF32 off; the β-VAE-GAN once more in bf16,
+    where every dense layer launches fused_linear from the graph, 21 a
+    step). The graph replays the eager step's kernels, so every metric and
+    every parameter, running statistic, Adam moment and count of the
+    graphed run must lie within the largest |Δ| between the two eager runs
+    of that tensor, and be bit-identical where they are. cuDNN runs
+    deterministic algorithms: with its default choice these float32 steps
+    differ from run to run, and a third run lies as often outside that
+    spread as inside it, tensor by tensor; deterministic, the eager runs
+    are bit-identical and so must the graph be. The replay adds its
+    capture's fused_linear launches to the count."""
+    from disentangle_mlp_tpu_torch.ops import fused_linear
+    from disentangle_mlp_tpu_torch.train.scan import make_multi_step
+
+    bf16 = which.endswith("_bf16")
+    cfg, make, x, draws = _make(which.removesuffix("_bf16"),
+                                "bfloat16" if bf16 else "float32")
+    xt = torch.from_numpy(x.astype(np.float32)).cuda()
+    batches = xt.expand((STEPS,) + tuple(xt.shape))
+    dev_draws = [_device_draws(d, "cuda") for d in draws]
+
+    def tensors(exp, metrics):
+        """The run's metrics, each stacked over the steps, then its
+        state."""
+        return [metrics[k] for k in sorted(metrics)] + [
+            t.detach().clone() for t in state_tensors(exp)]
+
+    with _tf32_off(), _cudnn_deterministic():
+        runs = []
+        for _ in range(2):
+            exp = make(cfg, "cuda")
+            ms = [exp.train_step(xt, draws=d) for d in dev_draws]
+            runs.append(tensors(exp, {k: torch.stack([m[k] for m in ms])
+                                      for k in ms[0]}))
+        exp = make(cfg, "cuda")
+        multi = make_multi_step(exp, STEPS)
+        multi.capture(batches, dev_draws)
+        before = fused_linear.launches
+        graphed = tensors(exp, multi(batches, dev_draws))
+        launches = fused_linear.launches - before
+    assert launches == (FUSED_LINEAR_PER_STEP * STEPS if bf16 else 0)
+    worse = []
+    for i, (a, b, g) in enumerate(zip(*runs, graphed)):
+        d_ee = (a.double() - b.double()).abs().max().item()
+        d_ge = (g.double() - a.double()).abs().max().item()
+        if d_ge > d_ee:
+            worse.append((i, d_ge, d_ee))
+    assert not worse, (f"{which}: {len(worse)} of {len(graphed)} tensors "
+                       f"(index, |graph - eager|, |eager - eager|): "
+                       f"{worse[:8]}")
+
+
+@pytest.mark.cuda
+def test_port_graph_replay_refuses_moved_state(card):
+    """A replay after a parameter was replaced by a copy elsewhere raises:
+    the graph would go on updating the old memory."""
+    from disentangle_mlp_tpu_torch.train.scan import make_multi_step
+
+    cfg, make, x, _ = _make("vae")
+    exp = make(cfg, "cuda")
+    xt = torch.from_numpy(x.astype(np.float32)).cuda()[None]
+    multi = make_multi_step(exp, 1)
+    multi(xt)
+    exp.params[0].data = exp.params[0].data.clone()
+    with pytest.raises(RuntimeError, match="moved"):
+        multi(xt)
+
+
+@pytest.mark.cuda
+def test_port_async_checkpoint_on_the_card(card, tmp_path):
+    """The AsyncCheckpointer on card tensors: its file byte-identical to
+    save_checkpoint's, taken from the snapshot (the parameters changed right
+    after save() returned do not reach it), and rotated to the newest 2."""
+    from disentangle_mlp_tpu_torch.utils import checkpoint as ckpt
+
+    cfg, make, x, draws = _make("betavaegan_intent")
+    exp = make(cfg, "cuda")
+    exp.train_step(torch.from_numpy(x.astype(np.float32)).cuda(),
+                   draws=_device_draws(draws[0], "cuda"))
+    want = str(tmp_path / "want")
+
+    def same(a, b) -> bool:
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            return fa.read() == fb.read()
+
+    ckpt.save_checkpoint(want, 1, exp.states(), "bfloat16")
+    saver = ckpt.AsyncCheckpointer("bfloat16")
+    saver.save(str(tmp_path / "model_1"), 1, exp.states(), rotate_keep=2)
+    with torch.no_grad():
+        for t in state_tensors(exp):
+            t.add_(1)
+    saver.wait()
+    assert same(want, tmp_path / "model_1")
+    for n in (2, 3):
+        saver.save(str(tmp_path / f"model_{n}"), n, exp.states(),
+                   rotate_keep=2)
+    saver.wait()
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "model_2", "model_3", "want"]
+    ckpt.save_checkpoint(want, 3, exp.states(), "bfloat16")
+    assert same(want, tmp_path / "model_3")
 
 
 def _largest_differences(ra, rb, which) -> dict:

@@ -12,11 +12,16 @@ Adam bridge of utils/params.py), on the CPU at toy width:
 - a run the JAX package started continues in the port: the port's step
   from the JAX checkpoint matches the JAX package's own next step;
 - ``--checkpoint_save_dtype bfloat16`` through the trainer CLI, and the
-  refusals of a checkpoint that does not fit.
+  refusals of a checkpoint that does not fit;
+- the ``AsyncCheckpointer``: its file byte-identical to the synchronous
+  writer's (and read by the JAX package), written from the snapshot taken
+  at ``save`` (the worker held while the parameters change), rotated only
+  after it has landed, and its worker's error raised by ``wait``.
 """
 
 import functools
 import glob
+import threading
 
 import numpy as np
 import pytest
@@ -35,6 +40,7 @@ from disentangle_mlp_tpu_torch.cli import train as cli_train
 from disentangle_mlp_tpu_torch.config import Config
 from disentangle_mlp_tpu_torch.train import loop
 from disentangle_mlp_tpu_torch.train.gan import GANExperiment
+from disentangle_mlp_tpu_torch.train.scan import state_tensors
 from disentangle_mlp_tpu_torch.train.vae import VAEExperiment
 from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
 from disentangle_mlp_tpu_torch.utils import checkpoint as port_ckpt
@@ -325,3 +331,102 @@ def test_port_checkpoint_refuses_what_does_not_fit(tmp_path, fault):
     port_ckpt.save_checkpoint(path, 1, states)
     with pytest.raises(ValueError, match=match):
         loop._restore(target, path)
+
+
+# ------------------------------------------------------ async checkpoints --
+
+def _held_writer(monkeypatch):
+    """Hold the AsyncCheckpointer's worker before it writes: returns (an
+    event set when the worker is held, the event that releases it)."""
+    held, release = threading.Event(), threading.Event()
+    write = port_ckpt.save_checkpoint
+
+    def held_write(*args, **kw):
+        held.set()
+        assert release.wait(60)
+        return write(*args, **kw)
+
+    monkeypatch.setattr(port_ckpt, "save_checkpoint", held_write)
+    return held, release
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_port_async_checkpoint_is_the_sync_file(tmp_path, moments):
+    """The worker's file is byte-identical to save_checkpoint's, and the
+    JAX package's load_checkpoint reads it exactly."""
+    port = _port("betavaegan", "intent")
+    template = _jax_states("betavaegan", "intent")
+    port.load_states(_to_torch(serialization.to_state_dict(
+        _random_like(template, 3))))
+    sync, path = str(tmp_path / "sync"), str(tmp_path / "model_2")
+    port_ckpt.save_checkpoint(sync, 2, port.states(), moments)
+    saver = port_ckpt.AsyncCheckpointer(moments)
+    saver.save(path, 2, port.states())
+    saver.wait()
+    with open(sync, "rb") as a, open(path, "rb") as b:
+        assert a.read() == b.read()
+    assert saver.last["path"] == path and saver.last["bytes"] > 0
+    epoch, got = jax_ckpt.load_checkpoint(path, template)
+    assert epoch == 2
+    _assert_states_equal(port.states(), got,
+                         moments_via=None if moments == "float32"
+                         else torch.bfloat16)
+
+
+def test_port_async_checkpoint_writes_the_snapshot(tmp_path, monkeypatch):
+    """Parameters, moments and counts changed after save() returned do not
+    reach the file: the worker, held until they have changed, writes the
+    states as they were at the call."""
+    port = _port("vae", "observed")
+    want = str(tmp_path / "want")
+    port_ckpt.save_checkpoint(want, 1, port.states())
+    held, release = _held_writer(monkeypatch)
+    saver = port_ckpt.AsyncCheckpointer()
+    path = str(tmp_path / "model_1")
+    saver.save(path, 1, port.states())
+    assert held.wait(60)
+    with torch.no_grad():
+        for t in state_tensors(port):
+            t.add_(1)
+    release.set()
+    saver.wait()
+    with open(want, "rb") as a, open(path, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_port_async_checkpoint_rotates_after_the_write_lands(tmp_path,
+                                                             monkeypatch):
+    """keep 2: while a save is held the older files stay; once it lands
+    exactly the two newest remain (the JAX package rotated from the caller
+    through round 4, before the write existed, and left three)."""
+    port = _port("vae", "observed")
+    saver = port_ckpt.AsyncCheckpointer()
+    names = lambda: sorted(p.name for p in tmp_path.iterdir())  # noqa: E731
+    for n in (1, 2, 3):
+        saver.save(str(tmp_path / f"model_{n}"), n, port.states(),
+                   rotate_keep=2)
+    saver.wait()
+    assert names() == ["model_2", "model_3"]
+    held, release = _held_writer(monkeypatch)
+    saver.save(str(tmp_path / "model_4"), 4, port.states(), rotate_keep=2)
+    assert held.wait(60)
+    assert names() == ["model_2", "model_3"]
+    release.set()
+    saver.wait()
+    assert names() == ["model_3", "model_4"]
+
+
+def test_port_async_checkpoint_raises_the_worker_error(tmp_path,
+                                                       monkeypatch):
+    """An error of the worker comes up at the next wait(), once."""
+    def broken(*args, **kw):
+        raise OSError("no space left on device")
+
+    monkeypatch.setattr(port_ckpt, "save_checkpoint", broken)
+    saver = port_ckpt.AsyncCheckpointer()
+    saver.save(str(tmp_path / "model_1"), 1, _port("vae", "observed")
+               .states())
+    with pytest.raises(OSError, match="no space left"):
+        saver.wait()
+    saver.wait()
+    assert not (tmp_path / "model_1").exists()
