@@ -107,6 +107,21 @@ Phases, each fatal on failure:
    converted by ``cli.convert`` (leaves checked against the layout rules)
    and resumed by the trainer for one epoch of 2 steps. Launches checked as
    in phase 5;
+12b. data parallelism (parallel/mesh.py) on the one card: ``[ddp] nccl
+   w1``, the full-width β-VAE-GAN 'observed' on the explicit group
+   [cuda:0] over NCCL, world 1, 4 trainer steps (the first eager, then the
+   one-step graph with its all-reduces captured), every metric and state
+   tensor bit-identical to the same steps without a mesh, fused_linear 21
+   launches a step; ``[ddp] gloo w2``, two spawned ranks sharing cuda:0
+   over gloo, 3 eager steps of 128 rows a rank (a float32 control, then
+   bf16 with bn_groups 1 and 2) against this process's steps on the whole
+   256 within DDP_TOL of the dtype, the ranks' state bit-identical, 21
+   fused_linear launches a bf16 step on each rank; ``[ddp]
+   fid``, pool3 of 1000 full-width decodes split over those ranks against
+   one process, one per_image_normalize launch a rank; ``[train] mesh``,
+   the trainer with --mesh_shape 2 on one card raising the ValueError
+   that names 1 visible device. The ranks report their launches, which
+   the kernels line counts;
 13. print the ``kernels`` JSON line, the card line and, last, the ok line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
@@ -116,6 +131,7 @@ package is missing.
 from __future__ import annotations
 
 import glob
+import hashlib
 import json
 import math
 import os
@@ -2098,6 +2114,433 @@ def time_graph(card: str) -> dict:
     return by_kind
 
 
+# ---------------------------------------------------------------------------
+# 12b. data parallelism (parallel/mesh.py) on the one card
+# ---------------------------------------------------------------------------
+
+DDP_W1_STEPS = 4
+DDP_W2_STEPS = 3
+DDP_RANKS = 2
+# two ranks' steps against one process's on the whole batch, as
+# tests/test_torch_port_card_training.py compares two devices: each metric
+# within its relative bound at each step; each parameter, and each running
+# statistic after the first step and after the last, as assert_allclose
+# with rtol 1e-3 and the leaf kind's atol. The float32 control takes that
+# file's float32 tolerances, the bf16 runs its bf16 ones. Two readings
+# are a random walk at full width in either dtype, as a BatchNorm-fed bias
+# is: the running statistics of the BatchNorms after the encoder's two
+# 16384-wide heads (mu_bn, lv_bn), and the KL term after the first step,
+# which reads those heads. Adam's sign-like first update moves each
+# element of mu_fc1 and lv_fc1 (33.5M each) whose gradient lies within
+# rounding noise by ±lr, and the BatchNorm statistics sum 16384 of them a
+# channel: after 3 steps the float32 control reads 0.10-0.29 in lv_bn's
+# running mean and 0.027 in mu_bn's (the float32 atol is 0.02), one
+# process in bf16 against float32 0.48 and 0.078, while the next
+# statistic, encoder.bn3's after a 3200-wide convolution, reads 0.64 of
+# its bound (this phase on an NVIDIA H100 80GB HBM3 at 700 W). They are
+# held after the first step (``stats1``, the KL at step 1) and printed
+# after the last. The phase runs under cudnn.deterministic, as [scan]
+# does: float32 cuDNN's default is not run-to-run deterministic
+BF16_METRIC_RTOL = {"recon_enc": 1e-2, "recon_dec": 1e-2, "dis": 1e-2,
+                    "D_x": 1e-2, "kld": 1e-1, "sim": 1e-1}
+DDP_TOL = {
+    "float32": {"metrics": (5e-3, 5e-3, 5e-3), "params": 6e-3,
+                "cancelled": 4e-2, "stats": 2e-2},
+    "bfloat16": {"metrics": (BF16_METRIC_RTOL,) * 3, "params": 1.2e-2,
+                 "cancelled": 4e-2, "stats": 6e-2},
+}
+DDP_LEAF_RTOL = 1e-3
+# the three runs: (key, bn_groups, dtype)
+DDP_W2_RUNS = (("float32", 1, "float32"), ("groups1", 1, "bfloat16"),
+               ("groups2", 2, "bfloat16"))
+# layers whose bias feeds a BatchNorm: no true gradient, a random walk
+DDP_BN_CANCELLED = {"conv1", "conv2", "conv3", "conv4", "mu_fc1", "lv_fc1",
+                    "preprocess", "deconv1", "deconv2", "deconv3"}
+DDP_WALK_LEAVES = {f"encoder.{bn}.running_{s}" for bn in ("mu_bn", "lv_bn")
+                   for s in ("mean", "var")}
+DDP_WALK_METRICS = {"kld"}
+
+
+def _ddp_leaf_kind(name: str) -> str:
+    parts = name.split(".")
+    if name in DDP_WALK_LEAVES:
+        return "walk"
+    if "running_" in parts[-1]:
+        return "stats"
+    return ("cancelled" if parts[-1] == "bias" and len(parts) > 1
+            and parts[-2] in DDP_BN_CANCELLED else "params")
+TOL_DDP_ACTS = {"rtol": 1e-4, "atol": 1e-5}
+
+
+def _ddp_config(bn_groups: int = 1, dtype: str = "bfloat16"):
+    from disentangle_mlp_tpu_torch.config import Config
+
+    return Config(name="smoke_ddp", batch_size_train=BATCH, dtype=dtype,
+                  freeze_mode="observed",
+                  bn_groups=bn_groups).finalize(make_dirs=False)
+
+
+def _ddp_batches(steps: int):
+    """``steps`` global batches of the synthetic source, on the host."""
+    from disentangle_mlp_tpu_torch.data.pipeline import SyntheticSource
+
+    x, _ = SyntheticSource(size=steps * BATCH, seed=_ddp_config().seed
+                           ).load_batch(range(steps * BATCH))
+    return x.reshape((steps, BATCH) + x.shape[1:])
+
+
+def _graph_steps(exp, batches) -> tuple:
+    """The trainer's stepping on ``batches`` (on the card): the first step
+    eager on the capture stream, then replays of the one-step graph; returns
+    (the metrics of each step, ms per replayed step)."""
+    from disentangle_mlp_tpu_torch.train.scan import make_multi_step
+    import torch
+
+    multi = make_multi_step(exp, 1)
+    out = [multi.step_and_capture(batches[:1], [exp.draw(BATCH)])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, batches.shape[0]):
+        out.append(multi(batches[i:i + 1], [exp.draw(BATCH)]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (batches.shape[0] - 1)
+    return [{k: v.clone() for k, v in m.items()} for m in out], ms
+
+
+def _ddp_w1_rank(mesh, fl, pin, batches) -> tuple:
+    """The NCCL world-1 run: the experiment on the mesh, rank 0's state
+    broadcast, DDP_W1_STEPS trainer steps, counted."""
+    from disentangle_mlp_tpu_torch.parallel import replicate
+    from disentangle_mlp_tpu_torch.train.scan import state_tensors
+    from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
+    import torch
+
+    exp = VAEGANExperiment(_ddp_config(), torch.device("cuda"), mesh=mesh)
+    replicate(state_tensors(exp), mesh)
+    (metrics, ms), launches, by_path, _ = count_launches(
+        fl, pin, lambda: _graph_steps(exp, batches))
+    return (metrics, [t.detach().clone() for t in state_tensors(exp)], ms,
+            launches, by_path, mesh.backend)
+
+
+def ddp_nccl_w1(fl, pin, card: str) -> tuple:
+    """``[ddp] nccl w1``: the full-width β-VAE-GAN 'observed' on the
+    explicit group [cuda:0] over NCCL, world 1, DDP_W1_STEPS steps as the
+    trainer steps (the first eager, then the one-step graph with the
+    step's all-reduces captured), against the same steps without a mesh:
+    every metric and state tensor bit-identical (cuDNN deterministic, as in
+    [scan]); fused_linear 21 launches a step. Returns the mesh run's
+    launches and fused_linear by path."""
+    from disentangle_mlp_tpu_torch.parallel import make_mesh, spawn
+    from disentangle_mlp_tpu_torch.train.scan import state_tensors
+    from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        batches = torch.from_numpy(_ddp_batches(DDP_W1_STEPS)).cuda()
+        exp = VAEGANExperiment(_ddp_config(), torch.device("cuda"))
+        m0, ms0 = _graph_steps(exp, batches)
+        s0 = [t.detach().clone() for t in state_tensors(exp)]
+        del exp
+        (m1, s1, ms1, launches, by_path, backend), = spawn(
+            _ddp_w1_rank, make_mesh(devices=["cuda:0"]), fl, pin, batches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if backend != "nccl":
+        fail(f"[ddp] nccl w1: the group [cuda:0] ran {backend}")
+    differ = [k for a, b in zip(m0, m1) for k in a
+              if not torch.equal(a[k], b[k])]
+    differ += [i for i, (a, b) in enumerate(zip(s0, s1))
+               if not torch.equal(a, b)]
+    if differ:
+        fail(f"[ddp] nccl w1: {len(differ)} metrics or state tensors differ "
+             f"from the run without a mesh, e.g. {differ[:6]}")
+    want = DDP_W1_STEPS * LAUNCHES_PER_STEP
+    if launches["fused_linear"] != want:
+        fail(f"[ddp] nccl w1: fused_linear launches {launches}, expected "
+             f"{want}")
+    say(f"[ddp] nccl w1: β-VAE-GAN observed at batch {BATCH}, bf16, full "
+        f"width, on the group [cuda:0] over {backend}, world 1: "
+        f"{DDP_W1_STEPS} steps (the first eager, then one-step graph "
+        f"replays with the all-reduces captured); {len(s0)} state tensors "
+        f"and {len(m0) * len(m0[0])} metrics bit-identical to the run "
+        f"without a mesh; launches {json.dumps(launches)}, fused_linear by "
+        f"path {json.dumps(by_path)}; replayed ms/step {ms1:.2f} on the mesh "
+        f"against {ms0:.2f} without; card {card}")
+    return launches, by_path
+
+
+def _ddp_leaves(exp) -> list:
+    """(name, tensor) of every parameter and buffer of ``exp``, cloned."""
+    return [(n, t.detach().clone()) for net in (exp.vae, exp.discriminator)
+            for n, t in list(net.named_parameters())
+            + list(net.named_buffers())]
+
+
+def _ddp_steps(exp, batches) -> dict:
+    """``exp``'s eager steps on ``batches``: each step's metrics, the leaves
+    after the first step and after the last."""
+    metrics, first = [], None
+    for x in batches:
+        metrics.append({k: v.clone() for k, v in exp.train_step(x).items()})
+        if first is None:
+            first = _ddp_leaves(exp)
+    return {"metrics": metrics, "first": first, "last": _ddp_leaves(exp)}
+
+
+def _ddp_read(got: dict, want: dict, dtype: str) -> dict:
+    """Two runs' readings: each metric's relative difference by step, and
+    for each leaf kind the largest |a − b| / (atol + rtol·|b|) (> 1 fails,
+    as assert_allclose) with its leaf, its largest |a − b| and largest
+    |b|; the running statistics after the first step as ``stats1``."""
+    tol = DDP_TOL[dtype]
+    out = {"metrics": [{k: abs(float(m[k]) / float(w[k]) - 1) for k in w}
+                       for m, w in zip(got["metrics"], want["metrics"])]}
+    for when in ("first", "last"):
+        for (name, a), (_, b) in zip(got[when], want[when]):
+            kind = _ddp_leaf_kind(name)
+            if when == "first":
+                if kind not in ("stats", "walk"):
+                    continue
+                kind = "stats1"
+            d = (a.double() - b.double()).abs()
+            atol = tol["stats" if kind in ("stats1", "walk") else kind]
+            ratio = (d / (atol + DDP_LEAF_RTOL * b.double().abs())).max()
+            if ratio.item() > out.get(kind, {"ratio": -1.0})["ratio"]:
+                out[kind] = {"ratio": ratio.item(), "leaf": name,
+                             "abs": d.max().item(),
+                             "scale": b.abs().max().item()}
+    return out
+
+
+def _ddp_metric_ratio(r: dict, tol: dict) -> float:
+    """The largest metric difference over its bound, over the steps (a
+    random-walk metric at the first step only)."""
+    def bound(i, k):
+        t = tol["metrics"][i]
+        return t[k] if isinstance(t, dict) else t
+    return max(e / bound(i, k) for i, step in enumerate(r["metrics"])
+               for k, e in step.items()
+               if i == 0 or k not in DDP_WALK_METRICS)
+
+
+def _ddp_w2_rank(mesh, ref_path: str) -> dict:
+    """One of DDP_RANKS ranks sharing cuda:0 over gloo: each of
+    DDP_W2_RUNS, DDP_W2_STEPS eager steps on this rank's slice of each
+    global batch (the sliced loader), read against the single process's
+    run on the whole batch; then the FID activations of the reference
+    decode, this rank extracting its slice. Counts are set to 0 before each
+    part and read after it."""
+    from disentangle_mlp_tpu_torch.data.pipeline import (DataLoader,
+                                                         SyntheticSource)
+    from disentangle_mlp_tpu_torch.eval import fid
+    from disentangle_mlp_tpu_torch.ops import fused_linear as fl
+    from disentangle_mlp_tpu_torch.ops import image_ops as pin
+    from disentangle_mlp_tpu_torch.parallel import replicate
+    from disentangle_mlp_tpu_torch.train.scan import state_tensors
+    from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    ref = torch.load(ref_path, map_location="cuda")
+    out = {"launches": {"fused_linear": 0, "per_image_normalize": 0},
+           "by_path": {}}
+
+    def add(launches, by_path):
+        for k, v in launches.items():
+            out["launches"][k] += v
+        for k, v in by_path.items():
+            out["by_path"][k] = out["by_path"].get(k, 0) + v
+
+    for key, groups, dtype in DDP_W2_RUNS:
+        cfg = _ddp_config(groups, dtype)
+        exp = VAEGANExperiment(cfg, mesh.device, mesh=mesh)
+        replicate(state_tensors(exp), mesh)
+        loader = DataLoader(SyntheticSource(size=DDP_W2_STEPS * BATCH,
+                                            seed=cfg.seed), BATCH,
+                            device=mesh.device, process_index=mesh.rank,
+                            process_count=mesh.size)
+        torch.cuda.synchronize()
+        run, launches, by_path, wall = count_launches(
+            fl, pin, lambda: _ddp_steps(exp, (x for x, _ in loader)))
+        if dtype == "bfloat16":  # the float32 control launches no kernel
+            add(launches, by_path)
+        digest = hashlib.sha256(b"".join(
+            t.detach().cpu().numpy().tobytes()
+            for t in state_tensors(exp))).hexdigest()
+        out[key] = {**_ddp_read(run, ref[key], dtype),
+                    "digest": digest, "ms": wall * 1e3 / DDP_W2_STEPS,
+                    "launches": launches, "by_path": by_path,
+                    "loss": {k: float(v)
+                             for k, v in run["metrics"][-1].items()}}
+        del exp, loader, run
+        torch.cuda.empty_cache()
+
+    def extract():
+        return fid.get_activations(ref["decode"], mesh=mesh, normalize=True)
+
+    acts, launches, by_path, wall = count_launches(fl, pin, extract)
+    add(launches, by_path)
+    want = ref["acts"].cpu().numpy()
+    out["fid"] = {"err": float(abs(acts - want).max()),
+                  "bad": int((abs(acts - want) > TOL_DDP_ACTS["atol"]
+                              + TOL_DDP_ACTS["rtol"] * abs(want)).sum()),
+                  "launches": launches, "ms": wall * 1e3,
+                  "digest": hashlib.sha256(acts.tobytes()).hexdigest()}
+    return out
+
+
+def ddp_gloo_w2(fl, pin, card: str) -> list:
+    """``[ddp] gloo w2`` and ``[ddp] fid``: DDP_RANKS spawned ranks sharing
+    cuda:0 over gloo, the full-width β-VAE-GAN 'observed' DDP_W2_STEPS
+    eager steps of BATCH / DDP_RANKS rows a rank, each of DDP_W2_RUNS (the
+    float32 control, then bf16 with bn_groups 1 and 2), against this
+    process's steps on the whole BATCH (same seeds, so the same draws):
+    metrics, parameters and running statistics within DDP_TOL of the run's
+    dtype (beside what bf16 does to this process against float32, printed
+    for scale), every state tensor bit-identical across the ranks,
+    fused_linear 21 launches a bf16 step on each rank; then FID activations
+    of N_SAMPLES full-width decodes split over the ranks against this
+    process's, float32 (TOL_DDP_ACTS), one per_image_normalize launch a
+    rank. Every reading is printed before any bound is checked. Returns
+    each rank's main-path launches and fused_linear by path."""
+    from disentangle_mlp_tpu_torch.eval import fid
+    from disentangle_mlp_tpu_torch.eval.samples import _sample_latents
+    from disentangle_mlp_tpu_torch.parallel import make_mesh, spawn
+    from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
+    import torch
+
+    batches = torch.from_numpy(_ddp_batches(DDP_W2_STEPS)).cuda()
+    ref = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, groups, dtype in DDP_W2_RUNS:
+            exp = VAEGANExperiment(_ddp_config(groups, dtype),
+                                   torch.device("cuda"))
+            ref[key] = _ddp_steps(exp, batches)
+            if key == "groups1":
+                z = _sample_latents(0, N_SAMPLES, exp.cfg.n_hidden, "cuda")
+                ref["decode"] = exp.decode(z)
+                ref["acts"] = torch.from_numpy(fid.get_activations(
+                    ref["decode"], normalize=True))
+            del exp
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # what bf16 rounding does to one process at full width, read as the
+    # float32 control is: a run that computed in bf16 would read this
+    gap = _ddp_read(ref["groups1"], ref["float32"], "float32")
+    os.makedirs(RUN_DIR, exist_ok=True)
+    ref_path = os.path.join(RUN_DIR, "ddp_ref.pt")
+    torch.save(ref, ref_path)
+    del ref, batches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(_ddp_w2_rank, make_mesh(devices=["cuda:0"] * DDP_RANKS),
+                  ref_path)
+    wall = time.perf_counter() - t0
+
+    def readings(r: dict) -> str:
+        by_step = [{k: float(f"{e:.3e}") for k, e in step.items()}
+                   for step in r["metrics"]]
+        leaves = {k: {"ratio": round(r[k]["ratio"], 4), "leaf": r[k]["leaf"],
+                      "abs": float(f"{r[k]['abs']:.3e}"),
+                      "scale": float(f"{r[k]['scale']:.3e}")}
+                  for k in ("params", "cancelled", "stats1", "stats",
+                            "walk")}
+        return (f"metric relative differences by step "
+                f"{json.dumps(by_step)}; leaves (|a − b| / (atol + "
+                f"{DDP_LEAF_RTOL}·|b|), the leaf, its largest |a − b|, "
+                f"largest |b|; walk: {sorted(DDP_WALK_LEAVES)}, held after "
+                f"the first step only, as {sorted(DDP_WALK_METRICS)}) "
+                f"{json.dumps(leaves)}")
+
+    say(f"[ddp] bf16 against float32, one process on {BATCH}, full width, "
+        f"read against the float32 bounds: {readings(gap)}; metrics / "
+        f"bound {_ddp_metric_ratio(gap, DDP_TOL['float32']):.3f}; card "
+        f"{card}")
+    failed = []
+    for key, groups, dtype in DDP_W2_RUNS:
+        res = [r[key] for r in ranks]
+        tol = DDP_TOL[dtype]
+        worst = max(max(_ddp_metric_ratio(r, tol),
+                        *(r[k]["ratio"] for k in ("params", "cancelled",
+                                                   "stats1", "stats")))
+                    for r in res)
+        same = len({r["digest"] for r in res}) == 1
+        say(f"[ddp] gloo w2 {dtype} bn_groups {groups}: β-VAE-GAN observed, "
+            f"full width, {DDP_RANKS} ranks on cuda:0 over gloo, "
+            f"{DDP_W2_STEPS} eager steps of {BATCH // DDP_RANKS} rows a rank "
+            f"against one process on {BATCH} in {dtype}: {readings(res[0])}"
+            f"; metrics / bound {_ddp_metric_ratio(res[0], tol):.3f}; "
+            f"largest error / bound {worst:.3f} (bounds "
+            f"{json.dumps(tol)}, leaf rtol {DDP_LEAF_RTOL}); the ranks' "
+            f"state {'bit-identical' if same else 'DIFFERENT'}; ms/step "
+            f"{', '.join(f'{r['ms']:.1f}' for r in res)} (host-staged "
+            f"collectives, a correctness check); launches a rank "
+            f"{json.dumps(res[0]['launches'])}, fused_linear by path "
+            f"{json.dumps(res[0]['by_path'])}; last step "
+            f"{json.dumps(res[0]['loss'])}; card {card}")
+        if worst > 1.0:
+            failed.append(f"{key}: outside the {dtype} bounds (largest "
+                          f"error / bound {worst:.3f})")
+        if not same:
+            failed.append(f"{key}: the ranks' state differs")
+        want = DDP_W2_STEPS * LAUNCHES_PER_STEP if dtype == "bfloat16" else 0
+        if any(r["launches"]["fused_linear"] != want for r in res):
+            failed.append(f"{key}: launches {[r['launches'] for r in res]}, "
+                          f"expected fused_linear {want} a rank")
+    fids = [r["fid"] for r in ranks]
+    same = len({f["digest"] for f in fids}) == 1
+    say(f"[ddp] fid: pool3 of {N_SAMPLES} full-width decodes over "
+        f"{DDP_RANKS} ranks ({N_SAMPLES // DDP_RANKS} each, normalized on "
+        f"the rank) against one process, float32: largest |d| "
+        f"{max(f['err'] for f in fids):.3e} (tol {json.dumps(TOL_DDP_ACTS)}),"
+        f" the ranks' activations {'identical' if same else 'DIFFERENT'}; "
+        f"{', '.join(f'{f['ms']:.1f}' for f in fids)} ms a rank; launches a "
+        f"rank {json.dumps(fids[0]['launches'])}; all ranks {wall:.1f} s "
+        f"with their start; card {card}")
+    if any(f["bad"] for f in fids) or not same:
+        failed.append(f"fid: activations outside {TOL_DDP_ACTS} "
+                      f"({[f['bad'] for f in fids]} elements) or differing "
+                      f"between the ranks")
+    if any(f["launches"]["per_image_normalize"] != 1 for f in fids):
+        failed.append(f"fid: per_image_normalize launches "
+                      f"{[f['launches'] for f in fids]}, expected 1 a rank")
+    if failed:
+        fail(f"[ddp] gloo w2: {'; '.join(failed)}")
+    return [(r["launches"], r["by_path"]) for r in ranks]
+
+
+def train_mesh(card: str) -> None:
+    """``[train] mesh``: the trainer with --mesh_shape 2 on one card raises,
+    naming the 1 visible device (every other [train] run takes the
+    default --mesh_shape 0, the single-device path)."""
+    from disentangle_mlp_tpu_torch.cli.train import main as train_main
+    import torch
+
+    n = torch.cuda.device_count()
+    argv = ["--name", "smoke_mesh", "--device", "cuda", "--mesh_shape", "2",
+            "--synthetic_data", "True", "--calc_fid", "False",
+            "--save_path", os.path.join(RUN_DIR, "%"),
+            "--log_path", os.path.join(RUN_DIR, "%", "log")]
+    try:
+        train_main(argv)
+    except ValueError as e:
+        if f"than the {n} visible" not in str(e):
+            fail(f"[train] mesh: ValueError {e!r} does not name the {n} "
+                 f"visible device(s)")
+        say(f"[train] mesh: --mesh_shape 2 on {n} visible device raises "
+            f"ValueError: {e}; --mesh_shape 0 (every [train] run above) is "
+            f"the single-device path; card {card}")
+        return
+    fail("[train] mesh: --mesh_shape 2 on one card did not raise")
+
+
 def main() -> None:
     try:
         import torch
@@ -2195,6 +2638,10 @@ def main() -> None:
         runs.append(bo_search(fl, pin, stats_path, card))
         runs.append(reproduce_run(fl, pin, card))
         runs.append(convert_resume(fl, pin, card))
+        # 12b. data parallelism on the one card
+        runs.append(ddp_nccl_w1(fl, pin, card))
+        runs += ddp_gloo_w2(fl, pin, card)
+        train_mesh(card)
         launches = {k: sum(r[0][k] for r in runs) for k in runs[0][0]}
         by_path = {}
         for paths in (r[1] for r in runs):

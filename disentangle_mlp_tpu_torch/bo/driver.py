@@ -7,16 +7,18 @@ owns that loop: seed observations → fit the GP → maximize EI on the β grid
 → train and score the proposed β through an objective → repeat. The
 objective is any ``beta -> fid`` callable; ``make_training_objective``
 builds the real one, a full :func:`~..train.loop.run_vaegan` at that β on
-one torch device.
+one torch device or on a group of devices, one rank each.
 
 Two execution modes:
 
 - ``run(n)``: sequential, one β at a time;
 - ``run_parallel(rounds, make_group_objectives(cfg, k))``: k βs proposed
   jointly per round (constant-liar q-EI) and trained concurrently, one per
-  group of devices. A group is one device here: a group of several devices
-  needs data-parallel training, which the port does not have yet
-  (ROADMAP item 6, DDP), and is refused.
+  group of devices. A one-device group trains in this process, on the
+  round's thread, as a mesh of one with a process group of its own; a
+  group of several devices trains data-parallel, its
+  ranks spawned by that thread with their own rendezvous port
+  (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -205,23 +207,29 @@ def beta_run_config(base_cfg, beta: float, epochs: Optional[int] = None):
 
 
 def make_training_objective(base_cfg, epochs: Optional[int] = None,
-                            device="cuda") -> Callable[[float], float]:
+                            device="cuda", devices=None
+                            ) -> Callable[[float], float]:
     """beta → final-epoch FID of a full β-VAE-GAN training run on
-    ``device`` (the automated form of the reference's manual procedure)."""
+    ``device``, or data-parallel on the explicit group ``devices`` (the
+    automated form of the reference's manual procedure)."""
     from ..train.loop import resolve_device, run_vaegan
 
-    device = resolve_device(device)
+    if devices is not None:
+        devices = [resolve_device(d) for d in devices]
+    else:
+        device = resolve_device(device)
 
     def objective(beta: float) -> float:
         cfg = beta_run_config(base_cfg, beta, epochs)
-        result = run_vaegan(cfg, device=device)
+        result = (run_vaegan(cfg, device=devices[0], devices=devices)
+                  if devices is not None else run_vaegan(cfg, device=device))
         fid = result.get("FID", "N/A")
         if fid == "N/A":
             raise RuntimeError(
                 "objective requires calc_fid with usable reference stats")
         return float(fid)
 
-    objective.devices = [device]
+    objective.devices = devices if devices is not None else [device]
     return objective
 
 
@@ -230,8 +238,10 @@ def make_group_objectives(base_cfg, n_groups: int,
                           devices=None) -> List[Callable[[float], float]]:
     """Split ``devices`` (default every visible CUDA device, ``cuda:0`` …
     ``cuda:{n-1}``) into ``n_groups`` contiguous groups and build one
-    training objective per group. A group must be one device: the port has
-    no data-parallel training yet."""
+    training objective per group, pinned to that group as the JAX
+    package's are: one rank a device, a one-device group a mesh of one (a
+    batch the devices do not divide raises when the objective runs, as the
+    JAX package's explicit groups do)."""
     import torch
 
     devs = (list(devices) if devices is not None else
@@ -242,15 +252,10 @@ def make_group_objectives(base_cfg, n_groups: int,
             f"n_groups={n_groups} must be in [1, {len(devs)}] "
             f"(visible devices)")
     per = len(devs) // n_groups
-    if per > 1:
-        raise NotImplementedError(
-            f"{len(devs)} devices in {n_groups} groups puts {per} devices "
-            f"in a group; a group of more than one device needs "
-            f"data-parallel training, not yet ported (ROADMAP item 6, DDP)."
-            f" Pass --bo_parallel {len(devs)} for one device a group")
     idle = devs[per * n_groups:]
     if idle:  # no silent capacity drops
         print(f"[bo] WARNING: {len(devs)} devices don't split into "
               f"{n_groups} groups — {len(idle)} will idle: {idle}")
-    return [make_training_objective(base_cfg, epochs, device=d)
-            for d in devs[:n_groups]]
+    groups = [devs[i * per:(i + 1) * per] for i in range(n_groups)]
+    return [make_training_objective(base_cfg, epochs, devices=g)
+            for g in groups]

@@ -17,8 +17,9 @@ Two modes:
   β-VAE-GAN run of ``--bo_epochs`` epochs per proposed β on ``--device``
   (default cuda), each in its own tree under ``<save_path>/<name>_beta<β>``,
   the history in ``<save_path>/bo_history.json``. ``--bo_parallel k``
-  splits the visible CUDA devices into k groups of one device each and
-  trains k jointly proposed βs concurrently per round. ``--bo_report``
+  splits the visible CUDA devices into k contiguous groups and trains k
+  jointly proposed βs concurrently per round, one a group (a group of
+  several devices trains data-parallel). ``--bo_report``
   writes every train→FID cycle with its wall time, also when the search
   dies midway (then marked partial, with the error).
 """
@@ -47,8 +48,8 @@ def main(argv=None) -> None:
                         help="epochs per objective evaluation")
     parser.add_argument("--bo_parallel", type=int, default=1,
                         help="device groups training concurrently, one beta "
-                             "each (one device a group; 1 = sequential "
-                             "search)")
+                             "each (the visible devices split evenly; 1 = "
+                             "sequential search)")
     parser.add_argument("--bo_report", type=str, default="",
                         help="write a full search artifact here: every "
                              "train→FID→propose cycle with per-evaluation "

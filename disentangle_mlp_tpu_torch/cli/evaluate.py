@@ -7,6 +7,8 @@ checkpoint), plus ``--device``:
         [--device cuda|cpu]
 
 The checkpoints may come from either package (utils/checkpoint.py).
+``--mesh_shape N`` shares the sweep's FID extraction over N ranks, as in
+the trainer (rank 0 writes the files).
 """
 
 from __future__ import annotations

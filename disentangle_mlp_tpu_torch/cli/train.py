@@ -13,6 +13,16 @@ resumes training from a checkpoint of either package; for the CelebA
 experiments more than one, or ``--to_train False``, evaluates them
 (cli/evaluate.py). ``--profile_dir DIR`` writes a ``torch.profiler`` trace
 of the run there (utils/runtime.py), also when the run raises.
+
+``--mesh_shape N`` trains data-parallel on N devices, one process a rank:
+this command spawns the ranks (N CPU ranks with ``--device cpu``), or, run
+under ``torchrun --nproc_per_node N``, each process is the rank that
+torchrun's environment names (``MASTER_ADDR``, ``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``; the JAX package reads
+``JAX_COORDINATOR_ADDRESS``). 0 (the default) takes every visible device:
+on one card the single-device path. Asking for more CUDA devices than are
+visible raises, naming how many are. ``--device cuda:N`` pins the run to
+that one card (``--mesh_shape`` above 1 with it raises).
 """
 
 from __future__ import annotations

@@ -4,9 +4,10 @@ A copy of ``disentangle_mlp_tpu/config.py`` (``Config``, ``finalize``,
 ``build_arg_parser``) so the port's trainer has the identical flag surface,
 ``%`` path templating and output tree. The port imports nothing of the JAX
 package, so it keeps its own copy, with the reference's ``EnvSetter`` and
-``config_from_args``. ``--mesh_shape`` is accepted for compatibility; the
-port's trainer refuses a value above 1 (one device). The device is chosen
-by each CLI's own ``--device`` flag (cli/train.py).
+``config_from_args``. ``--mesh_shape N`` trains data-parallel on N devices
+(0 = every visible one; train/loop.py ``_setup_parallel``), one rank a
+device; the device type is chosen by each CLI's own ``--device`` flag
+(cli/train.py).
 """
 
 from __future__ import annotations
@@ -100,8 +101,8 @@ class Config:
     # stays float32 either way (train/common.py).
     # Opt-in perf mode; a documented semantic deviation when enabled.
     optimizer_dtype: str = "float32"
-    # Data-parallel mesh size; 0 = all visible devices. The port trains on
-    # one device and refuses a value above 1.
+    # Data-parallel mesh size; 0 = all visible devices (one rank a device;
+    # on the CPU, N ranks; more CUDA devices than are visible raises).
     mesh_shape: int = 0
     # Replace the image-folder dataset with a synthetic stream (for
     # benchmarking / machines without CelebA).

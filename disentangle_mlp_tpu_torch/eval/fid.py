@@ -13,7 +13,11 @@
   or a directory of images, whose statistics are computed on the way
   (``statistics_from_dir``: JPEGs decoded on the device by data/native.py,
   PNGs by utils/image_io.read_png); ``get_fid`` scores one against the
-  other, the reference's public signature.
+  other, the reference's public signature;
+- under a mesh (parallel/mesh.py) :func:`get_activations` splits the
+  samples over the ranks: each rank normalizes and runs pool3 on its
+  contiguous slice only, and the ranks' activations are gathered, as the
+  JAX package shards them over its devices.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops.image_ops import per_image_normalize as _normalize_tensor
+from ..parallel.mesh import all_gather_rows
 from ..utils.params import inception_from_jax
 from .inception import FEATURE_DIM, get_params_cached, pool3_features
 
@@ -54,21 +59,42 @@ def inception_is_pretrained() -> bool:
 
 def get_activations(images01: Images, batch_size: int = FID_BATCH,
                     dtype: Optional[str] = None,
-                    device: str = "cuda") -> np.ndarray:
+                    device: str = "cuda", mesh=None,
+                    normalize: bool = False) -> np.ndarray:
     """NHWC float images in [0, 1] → (N, 2048) float32 activations, in
     chunks of ``batch_size``. A tensor is processed on its own device; a
     numpy batch is moved to ``device`` first. ``dtype`` overrides the
-    extraction dtype (default FEATURE_DTYPE, float32)."""
+    extraction dtype (default FEATURE_DTYPE, float32). ``normalize``: the
+    images are raw decodes, per-image normalized here first.
+
+    Under a joined ``mesh`` every rank passes all N images; each takes its
+    contiguous ⌈N/W⌉ rows (the last rank's padded with zeros), normalizes
+    and extracts only those, and every rank gets all N activations back
+    (:func:`all_gather_rows`), as the JAX package's sharded extraction
+    gives (pool3 is per image)."""
     if not isinstance(images01, torch.Tensor):
         images01 = torch.from_numpy(np.asarray(images01, np.float32)).to(
             device)
+    n = images01.shape[0]
+    if mesh is not None:
+        per = -(-n // mesh.size)
+        images01 = images01[mesh.rank * per:(mesh.rank + 1) * per]
+        pad = per - images01.shape[0]
+        if pad:
+            images01 = torch.cat([images01, images01.new_zeros(
+                (pad,) + tuple(images01.shape[1:]))])
+    if normalize:
+        images01 = _normalize_tensor(images01)
     model = _inception(str(images01.device))
     feat_dtype = getattr(torch, dtype or FEATURE_DTYPE)
     acts = [pool3_features(model, images01[i:i + batch_size], feat_dtype)
             for i in range(0, images01.shape[0], batch_size)]
     if not acts:
         return np.empty((0, FEATURE_DIM), np.float32)
-    return torch.cat(acts).cpu().numpy()
+    out = torch.cat(acts)
+    if mesh is not None:
+        out = all_gather_rows(out, mesh)[:n]
+    return out.cpu().numpy()
 
 
 def activation_statistics(acts: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -281,13 +307,16 @@ def get_fid(path_data: str, path_pretrained: str, device="cuda") -> float:
     return frechet_distance(m1, s1, m2, s2)
 
 
-def get_fid_from_samples(samples_pm1: Images, path_pretrained: str) -> float:
+def get_fid_from_samples(samples_pm1: Images, path_pretrained: str,
+                         mesh=None) -> float:
     """Score decoded samples (NHWC, any range; per-image normalized here)
-    against reference stats, in memory."""
+    against reference stats, in memory; under a ``mesh`` every rank holds
+    all the samples and extracts its slice (:func:`get_activations`)."""
     device = samples_pm1.device if isinstance(samples_pm1, torch.Tensor) \
         else "cuda"
     m2, s2 = _handle_path(path_pretrained, device)
-    acts = get_activations(per_image_normalize(samples_pm1))
+    acts = get_activations(samples_pm1, device=device, mesh=mesh,
+                           normalize=True)
     sqrt2 = (cached_sqrt_sigma2(path_pretrained, s2)
              if acts.shape[0] >= FEATURE_DIM else None)
     return frechet_from_acts(acts, m2, s2, sqrt_sigma2=sqrt2)

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_linear import LEAKY_SLOPE, fused_linear
+from ..parallel.mesh import all_reduce_sum, broadcast_
 
 DCGAN_STD = 0.02
 
@@ -181,7 +182,16 @@ class BatchNorm(nn.Module):
     but the channel axis 1: float32 statistics, compute-dtype output.
     ``groups > 1`` emulates torch DataParallel: contiguous batch groups are
     normalized with their own statistics and only group 0 updates the
-    running statistics (disentangle_mlp_tpu/models/layers.py _ManualBN)."""
+    running statistics (disentangle_mlp_tpu/models/layers.py _ManualBN).
+
+    Under a mesh (``mesh``, set by :func:`set_mesh`) the statistics are
+    those of the global batch, as the JAX package's sharded step computes
+    them: the float32 mean and mean of squares are averaged over the ranks
+    in one differentiable all-reduce of the concatenated 2C vector, and the
+    Bessel factor counts the global batch. With ``groups`` the groups split
+    the global batch, so each rank holds ``groups / ranks`` whole groups and
+    no statistic crosses ranks; the running statistics of group 0, which
+    lies on rank 0, are broadcast from there."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  groups: int = 1, momentum: float = 0.9,
@@ -190,19 +200,36 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.dtype, self.groups = dtype, groups
         self.momentum, self.epsilon = momentum, epsilon
+        self.mesh = None
         self.weight = nn.Parameter(
             1.0 + _normal((features,), DCGAN_STD, generator))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def _update(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
-        bessel = n / (n - 1) if n > 1 else 1.0
+    def _update(self, mean: torch.Tensor, var: torch.Tensor, n: int,
+                bessel: bool = True) -> None:
         m = self.momentum
         with torch.no_grad():
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var
-                                   + (1.0 - m) * var * bessel)
+            var = (1.0 - m) * var
+            if bessel:
+                var = var * (n / (n - 1) if n > 1 else 1.0)
+            self.running_var.copy_(m * self.running_var + var)
+
+    def _batch_stats(self, x: torch.Tensor):
+        """(mean, biased variance, count) over every axis but 1, float32;
+        over the global batch under a mesh."""
+        axes = (0,) + tuple(range(2, x.dim()))
+        xf = x.float()
+        mean = xf.mean(axes)
+        mean2 = xf.square().mean(axes)
+        n = x.numel() // x.shape[1]
+        if self.mesh is not None:
+            both = all_reduce_sum(torch.cat([mean, mean2]), self.mesh)
+            mean, mean2 = (both / self.mesh.size).chunk(2)
+            n *= self.mesh.size
+        return mean, torch.clamp(mean2 - mean.square(), min=0.0), n
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         dt = self.dtype
@@ -210,12 +237,8 @@ class BatchNorm(nn.Module):
             return self._grouped(x)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if train:
-            axes = (0,) + tuple(range(2, x.dim()))
-            xf = x.float()
-            mean = xf.mean(axes)
-            mean2 = xf.square().mean(axes)
-            var = torch.clamp(mean2 - mean.square(), min=0.0)
-            self._update(mean.detach(), var.detach(), x.numel() // x.shape[1])
+            mean, var, n = self._batch_stats(x)
+            self._update(mean.detach(), var.detach(), n)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.epsilon) * self.weight
@@ -225,6 +248,8 @@ class BatchNorm(nn.Module):
 
     def _grouped(self, x: torch.Tensor) -> torch.Tensor:
         g, b = self.groups, x.shape[0]
+        if self.mesh is not None:
+            g = local_groups(g, self.mesh)
         if b % g:
             raise ValueError(f"bn_groups={g} must divide the batch ({b})")
         xg = x.reshape((g, b // g) + tuple(x.shape[1:])).float()
@@ -232,8 +257,10 @@ class BatchNorm(nn.Module):
         gmean = xg.mean(axes)                                   # (g, C)
         gmean2 = xg.square().mean(axes)
         gvar = torch.clamp(gmean2 - gmean.square(), min=0.0)    # biased
-        self._update(gmean[0].detach(), gvar[0].detach(),
-                     xg[0].numel() // x.shape[1])
+        first = torch.cat([gmean[0], gvar[0]]).detach()
+        if self.mesh is not None:
+            broadcast_([first], self.mesh, 0)
+        self._update(*first.chunk(2), xg[0].numel() // x.shape[1])
         inv = torch.rsqrt(gvar + self.epsilon) * self.weight    # (g, C)
         shift = self.bias - gmean * inv
         shape = (g, 1, -1) + (1,) * (x.dim() - 2)
@@ -251,13 +278,14 @@ class FlaxBatchNorm(BatchNorm):
     Scale starts at 1 and bias at 0. Its flax leaves sit at
     ``…/BatchNorm_k/{scale, bias}`` and ``{mean, var}`` (utils/params.py).
     A :class:`BatchNorm`, so :func:`train.common.sampling` restores its
-    running statistics."""
+    running statistics, and global-batch statistics under a mesh."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  momentum: float = 0.9, epsilon: float = 1e-5):
         nn.Module.__init__(self)
         self.dtype, self.groups = dtype, 1
         self.momentum, self.epsilon = momentum, epsilon
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -267,20 +295,31 @@ class FlaxBatchNorm(BatchNorm):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.float()
         if train:
-            axes = (0,) + tuple(range(2, x.dim()))
-            mean = xf.mean(axes)
-            var = torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
-            m = self.momentum
-            with torch.no_grad():
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var
-                                       + (1.0 - m) * var)
+            mean, var, n = self._batch_stats(xf)
+            self._update(mean.detach(), var.detach(), n, bessel=False)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(self.dtype)
+
+
+def local_groups(groups: int, mesh) -> int:
+    """The BatchNorm groups of one rank: ``groups`` split the global batch,
+    so the ranks must divide them."""
+    if groups % mesh.size:
+        raise ValueError(f"bn_groups={groups} does not split into whole "
+                         f"groups over {mesh.size} ranks: the ranks must "
+                         f"divide it")
+    return groups // mesh.size
+
+
+def set_mesh(module: nn.Module, mesh) -> None:
+    """Every BatchNorm of ``module`` takes its statistics over ``mesh``'s
+    global batch (None: over its own input)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,12 @@
 - ``sim_loss``: 0.5·Σ(f_recon − f_real)² over Dis_l features;
 - ``reconstruction_loss``: sum-reduction pixel MSE;
 - ``vae_loss``: the plain VAE's objective, pixel MSE_sum + KLD.
+
+Under data parallelism over ``world`` ranks each rank computes its share of
+the global loss, and the shares sum to it: a sum term is the rank's local
+sum; a mean term (``bce``, ``bce_logits``, given ``world``) is the rank's
+local mean divided by ``world``, which is its local sum over the global
+count, since every rank holds as many rows.
 """
 
 from __future__ import annotations
@@ -46,21 +52,29 @@ def _targets_like(targets, like: torch.Tensor) -> torch.Tensor:
                            device=like.device).expand(like.shape)
 
 
-def bce(probs: torch.Tensor, targets) -> torch.Tensor:
+def share(mean: torch.Tensor, world: int) -> torch.Tensor:
+    """One rank's share of a mean over the global batch of ``world`` ranks
+    of equal size: its local mean / ``world`` (the mean itself for one)."""
+    return mean if world == 1 else mean / world
+
+
+def bce(probs: torch.Tensor, targets, world: int = 1) -> torch.Tensor:
     """Binary cross entropy on probabilities, mean reduction."""
     probs = probs.float()
     t = _targets_like(targets, probs)
-    return -torch.mean(t * _log_clamped(probs)
-                       + (1.0 - t) * _log1m_clamped(probs))
+    return share(-torch.mean(t * _log_clamped(probs)
+                             + (1.0 - t) * _log1m_clamped(probs)), world)
 
 
-def bce_logits(logits: torch.Tensor, targets) -> torch.Tensor:
+def bce_logits(logits: torch.Tensor, targets, world: int = 1
+               ) -> torch.Tensor:
     """Binary cross entropy on logits, mean reduction:
     max(l, 0) − l·t + log(1 + e^{−|l|})."""
     logits = logits.float()
     t = _targets_like(targets, logits)
-    return torch.mean(torch.clamp(logits, min=0.0) - logits * t
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    return share(torch.mean(torch.clamp(logits, min=0.0) - logits * t
+                            + torch.log1p(torch.exp(-torch.abs(logits)))),
+                 world)
 
 
 def kld(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,11 @@ losses never copy a Python float to the device.
 :func:`sampling` is how every experiment decodes, generates and
 reconstructs: BatchNorm in train mode, as the JAX package samples, with the
 running-statistics update that train mode makes put back afterwards.
+
+Under a mesh (parallel/mesh.py) :func:`reduce_grads` sums each phase's
+gradients over the ranks in one all-reduce before ``Adam.step``, and
+:func:`reduce_metrics` sums the ranks' shares of a step's metrics, so every
+rank returns the global batch's.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from torch import nn
 
 from ..models.layers import BatchNorm
+from ..parallel.mesh import all_reduce_flat
 from ..utils.params import (flax_tree, load_flax_tree, load_stats_tree,
                             stats_tree)
 
@@ -53,16 +59,23 @@ def sampling(module: nn.Module):
     statistics as they were before it. Train-mode BatchNorm normalizes with
     the statistics of the batch it is given (the JAX package's sampling
     mode) and updates its running statistics in place; they are saved and
-    put back, so sampling changes nothing a checkpoint saves."""
+    put back, so sampling changes nothing a checkpoint saves. Under a mesh
+    each rank samples the whole batch it is given, with that batch's own
+    statistics (as the JAX package decodes with replicated parameters): the
+    BatchNorms leave the mesh inside the block."""
     bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
-    saved = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    saved = [(m.running_mean.clone(), m.running_var.clone(), m.mesh)
+             for m in bns]
+    for m in bns:
+        m.mesh = None
     try:
         with torch.no_grad():
             yield
     finally:
-        for m, (mean, var) in zip(bns, saved):
+        for m, (mean, var, mesh) in zip(bns, saved):
             m.running_mean.copy_(mean)
             m.running_var.copy_(var)
+            m.mesh = mesh
 
 
 def model_state(module: nn.Module, opt_state) -> Dict:
@@ -82,6 +95,45 @@ def load_model_state(module: nn.Module, state: Dict) -> None:
 def grads(loss: torch.Tensor, params: List[torch.Tensor]):
     """d loss / d params; None for a parameter the loss does not reach."""
     return torch.autograd.grad(loss, params, allow_unused=True)
+
+
+def reduce_grads(g: Sequence[Optional[torch.Tensor]], mesh
+                 ) -> Sequence[Optional[torch.Tensor]]:
+    """The gradients summed over the ranks of ``mesh`` (each rank's loss is
+    its share of the global loss, so the sum is the global gradient), in
+    one all-reduce of the flattened gradients; as they are without a mesh.
+    Which gradients are None is the same on every rank."""
+    if mesh is None:
+        return g
+    live = [i for i, d in enumerate(g) if d is not None]
+    sums = all_reduce_flat([g[i] for i in live], mesh)
+    out = list(g)
+    for i, s in zip(live, sums):
+        out[i] = s
+    return out
+
+
+def reduce_metrics(metrics: Dict[str, torch.Tensor], mesh
+                   ) -> Dict[str, torch.Tensor]:
+    """A step's metrics of the global batch: each rank's shares (local sums,
+    local means over the rank count) summed over the ranks in one
+    all-reduce; as they are without a mesh."""
+    if mesh is None:
+        return metrics
+    keys = list(metrics)
+    (flat,) = all_reduce_flat([torch.stack([metrics[k] for k in keys])],
+                              mesh)
+    return {k: flat[i] for i, k in enumerate(keys)}
+
+
+def rank_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a draw made for the global batch (all of it
+    without a mesh): every rank draws the same global normals from its
+    identically seeded generator and keeps its own."""
+    if mesh is None:
+        return t
+    per = t.shape[0] // mesh.size
+    return t[mesh.rank * per:(mesh.rank + 1) * per]
 
 
 class Adam:

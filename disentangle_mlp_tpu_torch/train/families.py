@@ -15,6 +15,8 @@ Metrics: ``loss`` (the EG loss), ``errD``, ``recon`` (Σ(x̂ − x)²) and
 ``D_x``. β is ``cfg.beta``, as in the JAX package (whose default 50 is
 kept). The labels, z_prior and ε come from the experiment's generators
 unless the caller passes them (``draws``), which the parity tests do.
+Under a mesh each rank steps on its rows of the global batch, as
+train/vaegan.py describes.
 
 Models: birds, a ResNet-18 encoder at 128×128 (``--resnet18_ckpt``, a
 torchvision state dict, is loaded into it when the file exists) with the
@@ -35,13 +37,15 @@ from torch import nn
 from ..config import Config
 from ..data.pipeline import uses_real_mnist
 from ..models.birds import BirdsDiscriminator, BirdsEncoder, BirdsGenerator
+from ..models.layers import set_mesh
 from ..models.mnist import (LATENT_CHANNELS, MnistDiscriminator,
                             MnistEncoder, MnistGenerator)
 from ..models.resnet import load_torch_checkpoint
-from ..ops.losses import bce_logits, reconstruction_loss
+from ..ops.losses import bce_logits, reconstruction_loss, share
 from ..utils.params import adam_from_jax, adam_to_jax
 from .common import (DTYPES, Adam, frozen, grads, label_tensor,
-                     load_model_state, model_state, sample_labels, sampling)
+                     load_model_state, model_state, rank_rows, reduce_grads,
+                     reduce_metrics, sample_labels, sampling)
 
 FAMILY_DATASETS = ("birds", "mnist")
 
@@ -99,15 +103,20 @@ class FamilyExperiment:
     """The family's VAE and D, their optimizers and the per-batch
     ``train_step``; the modules are updated in place."""
 
-    def __init__(self, cfg: Config, device: torch.device):
+    def __init__(self, cfg: Config, device: torch.device, mesh=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.world = mesh.size if mesh is not None else 1
+        self.device = mesh.device if mesh is not None else \
+            torch.device(device)
         init = torch.Generator().manual_seed(cfg.seed)
         vae, disc, self.z_dim = build_models(cfg, init)
         if cfg.dataset == "birds" and cfg.resnet18_ckpt:
             load_torch_checkpoint(vae.encoder.resnet, cfg.resnet18_ckpt)
         self.vae = vae.to(self.device).train()
         self.discriminator = disc.to(self.device).train()
+        set_mesh(self.vae, mesh)
+        set_mesh(self.discriminator, mesh)
         self.beta = float(cfg.beta)
         moments = DTYPES[cfg.optimizer_dtype]
         self.eg_params = list(self.vae.parameters())
@@ -120,10 +129,12 @@ class FamilyExperiment:
             cfg.seed + 2)
 
     def draw(self, batch_size: int) -> Dict:
-        """One step's random draws: labels, z_prior and ε."""
+        """One step's random draws for this rank's ``batch_size`` rows:
+        labels, z_prior and ε."""
         def normal():
-            return torch.randn((batch_size, self.z_dim),
-                               generator=self.noise_gen, device=self.device)
+            return rank_rows(torch.randn(
+                (batch_size * self.world, self.z_dim),
+                generator=self.noise_gen, device=self.device), self.mesh)
 
         labels = label_tensor(sample_labels(self.label_gen), self.device)
         return {"labels": labels, "z_prior": normal(), "eps": normal()}
@@ -149,20 +160,21 @@ class FamilyExperiment:
         # (b) discriminator
         l_real = self._d(batch)
         l_fake = self._d(fake)
-        err_d = bce_logits(l_real, real_l) + bce_logits(l_fake, fake_l)
-        self.opt_d.step(grads(err_d, self.d_params))
-        d_x = torch.sigmoid(l_real.detach()).mean()
+        w, mesh = self.world, self.mesh
+        err_d = bce_logits(l_real, real_l, w) + bce_logits(l_fake, fake_l, w)
+        self.opt_d.step(reduce_grads(grads(err_d, self.d_params), mesh))
+        d_x = share(torch.sigmoid(l_real.detach()).mean(), w)
 
         # (c) encoder + generator against the updated, frozen D
         with frozen(self.d_params):
             recon, _, kld = self.vae(batch, eps)
             recon_l = reconstruction_loss(recon, batch)
             loss = (self.beta * torch.sum(kld) + recon_l
-                    + bce_logits(self._d(recon), real_l))
-            g = grads(loss, self.eg_params)
+                    + bce_logits(self._d(recon), real_l, w))
+            g = reduce_grads(grads(loss, self.eg_params), mesh)
         self.opt_eg.step(g)
-        return {"loss": loss.detach(), "errD": err_d.detach(),
-                "recon": recon_l.detach(), "D_x": d_x}
+        return reduce_metrics({"loss": loss.detach(), "errD": err_d.detach(),
+                               "recon": recon_l.detach(), "D_x": d_x}, mesh)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Images (NHWC) from latents ``z`` with train-mode BatchNorm, the

@@ -13,7 +13,8 @@ Per batch:
 D's BatchNorm running statistics advance in the order real, fake, then
 fake again for G; G's come from its one forward. The labels and the noise
 come from the experiment's generators unless the caller passes them
-(``draws``), which the parity tests do.
+(``draws``), which the parity tests do. Under a mesh each rank steps on its
+rows of the global batch, as train/vaegan.py describes.
 """
 
 from __future__ import annotations
@@ -24,19 +25,24 @@ import torch
 
 from ..config import Config
 from ..models.gan import DiscriminatorCeleba, GeneratorCeleba
-from ..ops.losses import bce_logits
+from ..models.layers import set_mesh
+from ..ops.losses import bce_logits, share
 from ..utils.params import adam_from_jax, adam_to_jax
 from .common import (DTYPES, Adam, frozen, grads, label_tensor,
-                     load_model_state, model_state, sample_labels, sampling)
+                     load_model_state, model_state, rank_rows, reduce_grads,
+                     reduce_metrics, sample_labels, sampling)
 
 
 class GANExperiment:
     """Generator and discriminator, their optimizers and the per-batch
     ``train_step``; the modules are updated in place."""
 
-    def __init__(self, cfg: Config, device: torch.device):
+    def __init__(self, cfg: Config, device: torch.device, mesh=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.world = mesh.size if mesh is not None else 1
+        self.device = mesh.device if mesh is not None else \
+            torch.device(device)
         dtype = DTYPES[cfg.dtype]
         init = torch.Generator().manual_seed(cfg.seed)
         self.generator = GeneratorCeleba(
@@ -53,6 +59,8 @@ class GANExperiment:
         ).to(self.device)
         self.generator.train()
         self.discriminator.train()
+        set_mesh(self.generator, mesh)
+        set_mesh(self.discriminator, mesh)
         moments = DTYPES[cfg.optimizer_dtype]
         self.g_params = list(self.generator.parameters())
         self.d_params = list(self.discriminator.parameters())
@@ -64,12 +72,12 @@ class GANExperiment:
             cfg.seed + 2)
 
     def draw(self, batch_size: int) -> Dict:
-        """One step's random draws: labels and noise."""
+        """One step's random draws for this rank's ``batch_size`` rows:
+        labels and noise."""
         labels = label_tensor(sample_labels(self.label_gen), self.device)
-        return {"labels": labels,
-                "noise": torch.randn((batch_size, self.cfg.n_hidden),
-                                     generator=self.noise_gen,
-                                     device=self.device)}
+        return {"labels": labels, "noise": rank_rows(torch.randn(
+            (batch_size * self.world, self.cfg.n_hidden),
+            generator=self.noise_gen, device=self.device), self.mesh)}
 
     def _d(self, x: torch.Tensor) -> torch.Tensor:
         return self.discriminator(x, train=True, return_logits=True)[0]
@@ -89,22 +97,24 @@ class GANExperiment:
         fake = fake_graph.detach()
         l_real = self._d(batch)
         l_fake = self._d(fake)
-        err_d = bce_logits(l_real, real_l) + bce_logits(l_fake, fake_l)
-        self.opt_d.step(grads(err_d, self.d_params))
+        w, mesh = self.world, self.mesh
+        err_d = bce_logits(l_real, real_l, w) + bce_logits(l_fake, fake_l, w)
+        self.opt_d.step(reduce_grads(grads(err_d, self.d_params), mesh))
 
         # ---------------- (2) Generator, against the updated D -------------
         with frozen(self.d_params):
             l_fake2 = self._d(fake_graph)
-            err_g = bce_logits(l_fake2, real_l)
-            g = grads(err_g, self.g_params)
+            err_g = bce_logits(l_fake2, real_l, w)
+            g = reduce_grads(grads(err_g, self.g_params), mesh)
         self.opt_g.step(g)
 
         def mean_prob(logits):
-            return torch.sigmoid(logits.detach()).mean()
+            return share(torch.sigmoid(logits.detach()).mean(), w)
 
-        return {"errD": err_d.detach(), "errG": err_g.detach(),
-                "D_x": mean_prob(l_real), "D_G_z1": mean_prob(l_fake),
-                "D_G_z2": mean_prob(l_fake2)}
+        return reduce_metrics(
+            {"errD": err_d.detach(), "errG": err_g.detach(),
+             "D_x": mean_prob(l_real), "D_G_z1": mean_prob(l_fake),
+             "D_G_z2": mean_prob(l_fake2)}, mesh)
 
     def generate(self, z: torch.Tensor) -> torch.Tensor:
         """Images (NHWC, compute dtype) from latents ``z`` with train-mode

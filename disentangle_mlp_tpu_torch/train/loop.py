@@ -36,8 +36,20 @@ run waits for it before the evaluation sweep and before it returns.
 The data are an image folder (``--image_root_train``: JPEGs decoded and
 resized on the run's device, the uint8 cache on that device, filled ahead
 by the decode warm-up), MNIST's idx files or the synthetic stream; the
-reference statistics a ``.npz`` file or a directory of images. Not ported
-yet, and refused rather than skipped: multi-device meshes.
+reference statistics a ``.npz`` file or a directory of images.
+
+Data parallelism (``--mesh_shape N``, a torchrun launch, or an explicit
+``devices`` group; :func:`_setup_parallel` decides as the JAX package's
+does) runs one rank a device (parallel/mesh.py): ranks that this process
+does not hold yet are spawned, one process each. Every rank builds the
+experiment on its device with the state of rank 0 (a ``--load_path`` is
+read there and broadcast), reads its slice of each global batch and steps
+on it; the metrics are the global batch's. Rank 0 alone prints (its first
+line names the ranks and the backend), logs, writes checkpoints, sample
+files and grids, and scores FID; every rank decodes the FID samples and
+extracts pool3 from its slice of them. Under NCCL the steps are CUDA graph
+replays as above, their collectives captured; under gloo every step is
+eager.
 """
 
 from __future__ import annotations
@@ -56,11 +68,14 @@ from ..eval import fid as fid_mod
 from ..eval.samples import (_sample_latents, gen_reconstructions,
                             generate_fid_samples, generate_samples,
                             write_sample_files)
+from ..models.layers import local_groups
+from ..parallel.mesh import (Mesh, broadcast_, make_mesh,
+                             maybe_initialize_distributed, replicate, spawn)
 from ..utils.checkpoint import AsyncCheckpointer, load_checkpoint
 from ..utils.logger import Logger
 from .families import FamilyExperiment
 from .gan import GANExperiment
-from .scan import MultiStep, make_multi_step
+from .scan import MultiStep, make_multi_step, state_tensors
 from .vae import VAEExperiment
 from .vaegan import VAEGANExperiment
 
@@ -76,6 +91,54 @@ def resolve_device(name) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
     return dev
+
+
+def _setup_parallel(cfg: Config, device="cuda", devices=None
+                    ) -> Optional[Mesh]:
+    """The run's data-parallel mesh over ``cfg.mesh_shape`` devices (0 =
+    all visible), or None for one device (the JAX package's loop.py
+    ``_setup_parallel``).
+
+    ``devices`` is an explicit group (the β search runs one run per group):
+    an explicit group always gets a mesh, even a one-device one. A batch
+    that the devices do not divide raises for an explicit group and for a
+    torchrun launch of several processes; in the implicit single-host case
+    the run falls back to one device. ``--bn_groups`` must split into whole
+    groups on each rank."""
+    maybe_initialize_distributed(device)
+    mesh = make_mesh(cfg.mesh_shape, devices=devices, device=device)
+    n = mesh.size
+    if cfg.batch_size_train % n != 0:
+        if devices is not None:
+            raise ValueError(
+                f"batch_size_train={cfg.batch_size_train} must divide the "
+                f"explicit {n}-device group")
+        if mesh.joined:
+            raise ValueError(
+                f"multi-process run: batch_size_train={cfg.batch_size_train}"
+                f" must divide the {n} global devices")
+        return None
+    if n <= 1 and devices is None:
+        return None
+    if cfg.bn_groups > 1:
+        local_groups(cfg.bn_groups, mesh)
+    return mesh
+
+
+def _parallel(impl: Callable, cfg: Config, logger, device, devices) -> Dict:
+    """``impl(cfg, logger, device, mesh)`` on one device, on each rank of a
+    torchrun launch, or on ranks spawned here (rank 0's result returned)."""
+    device = resolve_device(device)
+    mesh = _setup_parallel(cfg, device, devices)
+    if mesh is None:
+        return impl(cfg, logger, device)
+    if mesh.joined:
+        return impl(cfg, logger, mesh.device, mesh)
+    return spawn(_rank_run, mesh, impl, cfg, logger)[0]
+
+
+def _rank_run(mesh: Mesh, impl: Callable, cfg: Config, logger) -> Dict:
+    return impl(cfg, logger if mesh.is_main else None, mesh.device, mesh)
 
 
 def _ckpt_due(cfg: Config, epoch: int) -> bool:
@@ -131,30 +194,43 @@ class Throughput:
         return self.images / dt if dt > 0 else 0.0
 
 
-def _restore(exp, path: str) -> int:
-    """Load the checkpoint at ``path`` into ``exp``; returns its epoch."""
-    epoch, states = load_checkpoint(path, exp.states())
-    exp.load_states(states)
+def _restore(exp, path: str, mesh: Optional[Mesh] = None) -> int:
+    """Load the checkpoint at ``path`` into ``exp``; returns its epoch.
+    Under a mesh rank 0 reads it and every rank takes rank 0's state."""
+    epoch = 0
+    if mesh is None or mesh.is_main:
+        epoch, states = load_checkpoint(path, exp.states())
+        exp.load_states(states)
+    if mesh is not None:
+        t = torch.tensor([epoch], device=mesh.device)
+        broadcast_([t], mesh)
+        replicate(state_tensors(exp), mesh)
+        epoch = int(t)
     return epoch
 
 
 def _maybe_fid(cfg: Config, decode_fn: Callable, epoch: int, path: str,
-               device="cuda", z: Optional[torch.Tensor] = None):
+               device="cuda", z: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None):
     """FID over cfg.n_samples decoded samples against the reference stats
     (reference new_betavaegan.py:230-235), the samples written to ``path``
     when ``cfg.fid_save_samples``. 'N/A' when FID is off or the stats asset
     is missing or unreadable (ASSET_ERRORS); any other error re-raises.
-    ``z`` replaces the seeded latents."""
+    ``z`` replaces the seeded latents. Under a mesh every rank decodes all
+    samples and extracts its slice; rank 0 writes the files."""
     if not cfg.calc_fid:
         return "N/A"
+    main = mesh is None or mesh.is_main
     try:
         samples = generate_fid_samples(
             decode_fn, epoch, cfg.n_samples, cfg.n_hidden, path,
-            rng_seed=cfg.seed + epoch, save=cfg.fid_save_samples,
+            rng_seed=cfg.seed + epoch, save=cfg.fid_save_samples and main,
             device=device, z=z)
-        return fid_mod.get_fid_from_samples(samples, cfg.fid_path_pretrained)
+        return fid_mod.get_fid_from_samples(samples, cfg.fid_path_pretrained,
+                                            mesh=mesh)
     except fid_mod.ASSET_ERRORS as e:
-        print(f"[fid] skipped: {e}", flush=True)
+        if main:
+            print(f"[fid] skipped: {e}", flush=True)
         return "N/A"
 
 
@@ -186,27 +262,34 @@ def _fid_pool() -> ThreadPoolExecutor:
 
 def _maybe_fid_async(cfg: Config, decode_fn: Callable, epoch: int,
                      path: str, device="cuda",
-                     z: Optional[torch.Tensor] = None
-                     ) -> Callable[[], object]:
+                     z: Optional[torch.Tensor] = None,
+                     mesh: Optional[Mesh] = None) -> Callable[[], object]:
     """Async twin of :func:`_maybe_fid`: returns a zero-argument
     ``resolve()`` → float | 'N/A'. Decode, per-image normalize, pool3 and
     the uint8 quantize (and its pull to the host) run now, in the caller's
     thread; only the PNG encodes and the Fréchet math go to the worker.
     Same error contract: ASSET_ERRORS → 'N/A' (printed), anything else
-    re-raises, from resolve() when it arises in the worker."""
+    re-raises, from resolve() when it arises in the worker. Under a mesh
+    every rank decodes all samples and normalizes and extracts its slice
+    (fid.get_activations); rank 0 alone quantizes, writes the files and
+    scores, and the other ranks resolve to 'N/A'."""
     if not cfg.calc_fid:
         return _instant_na()
+    main = mesh is None or mesh.is_main
     try:
         m2, s2 = fid_mod._handle_path(cfg.fid_path_pretrained, device)
         if z is None:
             z = _sample_latents(cfg.seed + epoch, cfg.n_samples,
                                 cfg.n_hidden, device)
         out = decode_fn(z)
-        acts = fid_mod.get_activations(fid_mod.per_image_normalize(out))
+        acts = fid_mod.get_activations(out, mesh=mesh, normalize=True)
+        if not main:
+            return _instant_na()
         u8 = (fid_mod.normalized_u8(out).cpu().numpy()
               if cfg.fid_save_samples else None)
     except fid_mod.ASSET_ERRORS as e:
-        print(f"[fid] skipped: {e}", flush=True)
+        if main:
+            print(f"[fid] skipped: {e}", flush=True)
         return _instant_na()
 
     def job():
@@ -234,9 +317,11 @@ class _EpochEmitter:
     """Defers each epoch's console line and JSON record until its FID
     resolves: one epoch later in async mode (finish() flushes the last).
     ``line`` is pre-formatted except for its ``{fid}`` slot, so rates and
-    losses are those of the epoch's end."""
+    losses are those of the epoch's end. Without a logger (a mesh's ranks
+    but rank 0) nothing is printed or logged."""
 
-    def __init__(self, logger: Logger, deferred: Optional[bool] = None):
+    def __init__(self, logger: Optional[Logger],
+                 deferred: Optional[bool] = None):
         self.logger = logger
         self.deferred = _FID_ASYNC if deferred is None else deferred
         self._pending = None
@@ -260,8 +345,9 @@ class _EpochEmitter:
         resolve, record_fn, line, last_fn = item
         fid = resolve()
         rec = record_fn(fid)
-        print(line.format(fid=fid), flush=True)
-        self.logger.log(rec)
+        if self.logger is not None:
+            print(line.format(fid=fid), flush=True)
+            self.logger.log(rec)
         self.last = last_fn(rec) if last_fn else \
             {k: v for k, v in rec.items() if k != "Epoch"}
 
@@ -272,36 +358,51 @@ class _EpochEmitter:
         return dict(self.last)
 
 
-def _refuse_unported(cfg: Config) -> None:
-    if cfg.mesh_shape > 1:
-        raise NotImplementedError("the port trains on one device; "
-                                  "--mesh_shape above 1 is not yet ported")
-
-
 class _Run:
     """What every experiment's run shares: the experiment on its device,
     the loaders, the start epoch (one ``--load_path`` resumes; more than
-    one only evaluates), the img/s meter and the epoch emitter."""
+    one only evaluates), the img/s meter and the epoch emitter; under a
+    joined ``mesh``, this rank's part of the run."""
 
-    def __init__(self, cfg: Config, make: Callable, logger, device):
-        _refuse_unported(cfg)
+    def __init__(self, cfg: Config, make: Callable, logger, device,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.main = mesh is None or mesh.is_main
+        self.world = 1 if mesh is None else mesh.size
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device)
+        # every step a CUDA graph replay after the first, unless a gloo
+        # mesh's collectives go through the host
+        self.graphed = self.device.type == "cuda" and (
+            mesh is None or mesh.backend == "nccl")
+        if mesh is not None and self.main:
+            print(f"[mesh] data parallel over {mesh.describe()}; "
+                  + ("the steps after the first replay one CUDA graph with "
+                     "their collectives" if self.graphed else
+                     "every step eager" + (": a CUDA graph cannot hold "
+                                           "gloo's host-staged collectives"
+                                           if self.device.type == "cuda"
+                                           else "")), flush=True)
+        ranks = (0, 1) if mesh is None else (mesh.rank, mesh.size)
         self.train_loader, _, self.test_loader = get_data_loader(
-            cfg, self.device)
+            cfg, self.device, *ranks)
         if cfg.to_train:
             # decode epoch 1 into the cache ahead of the steps, as the JAX
             # loops do (a no-op without a cache)
             self.train_loader.start_cache_warmup()
-        self.logger = logger or Logger(cfg.log_path, cfg)
-        self.exp = make(cfg, self.device)
+        self.logger = (logger or Logger(cfg.log_path, cfg)) if self.main \
+            else None
+        self.exp = make(cfg, self.device, mesh=mesh)
         self.start_epoch = 0
         if len(cfg.load_path) > 1 and cfg.to_train:
             # the reference silently trains from scratch here; the JAX
             # package raises
             raise ValueError("Cannot load more than one model for training")
         if len(cfg.load_path) == 1 and cfg.to_train:
-            self.start_epoch = _restore(self.exp, cfg.load_path[0])
+            self.start_epoch = _restore(self.exp, cfg.load_path[0], mesh)
+        elif mesh is not None:
+            replicate(state_tensors(self.exp), mesh)
         self.meter = Throughput(sync=torch.cuda.synchronize
                                 if self.device.type == "cuda" else None)
         self.emitter = _EpochEmitter(self.logger)
@@ -314,10 +415,11 @@ class _Run:
             else range(0)
 
     def step(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One training step on ``x``: eager on the CPU; on CUDA the run's
-        first step eagerly on the capture stream, then the one-step graph
-        captured after it, replayed for every later step."""
-        if self.device.type != "cuda":
+        """One training step on ``x``: eager on the CPU and on a gloo mesh;
+        on CUDA otherwise the run's first step eagerly on the capture
+        stream, then the one-step graph captured after it, replayed for
+        every later step."""
+        if not self.graphed:
             return self.exp.train_step(x)
         draws = [self.exp.draw(x.shape[0])]
         if self.graph is None:
@@ -330,9 +432,10 @@ class _Run:
     def train_epoch(self, keys, progress: Optional[Callable] = None
                     ) -> Dict[str, float]:
         """One epoch of steps; returns each metric of ``keys`` summed over
-        the batches and divided by the dataset size. ``progress(epoch-local
-        batch index, metrics, batch)`` prints every ``log_interval``
-        batches."""
+        the batches and divided by the dataset size (the metrics are the
+        global batch's under a mesh). ``progress(epoch-local batch index,
+        metrics, global batch size)`` prints every ``log_interval`` batches
+        on rank 0."""
         self.meter.resume()
         sums = None
         for i, (x, _) in enumerate(self.train_loader):
@@ -340,18 +443,20 @@ class _Run:
             keep = {k: self.m[k] for k in keys}
             sums = keep if sums is None else \
                 {k: sums[k] + keep[k] for k in sums}
-            self.meter.add(x.shape[0])
-            if progress is not None and i % self.cfg.log_interval == 0:
-                progress(i, self.m, x)
+            self.meter.add(x.shape[0] * self.world)
+            if (progress is not None and self.main
+                    and i % self.cfg.log_interval == 0):
+                progress(i, self.m, x.shape[0] * self.world)
         n = self.train_loader.dataset_size
         self.meter.pause()
         return {k: float(v) / n for k, v in sums.items()}
 
     def checkpoint(self, epoch: int) -> None:
         """Snapshot the state and return; the worker writes the file, then
-        keeps the newest ``keep_checkpoints``."""
+        keeps the newest ``keep_checkpoints``. Under a mesh rank 0 alone
+        writes: its state is every rank's."""
         cfg = self.cfg
-        if _ckpt_due(cfg, epoch):
+        if self.main and _ckpt_due(cfg, epoch):
             self.checkpointer.save(f"{cfg.model_path}/model_{epoch + 1}",
                                    epoch + 1, self.exp.states(),
                                    rotate_keep=cfg.keep_checkpoints)
@@ -361,30 +466,35 @@ class _Run:
         self.checkpointer.wait()
         last = self.emitter.finish()
         last["sweep"] = _eval_sweep(self.cfg, self.exp, sample_fn, recon_fn,
-                                    self.test_loader, self.device)
+                                    self.test_loader, self.device, self.mesh)
         last["images_per_sec"] = self.meter.rate()
         last["step_metrics"] = {k: float(v) for k, v in self.m.items()}
         return last
 
 
 def run_vae(cfg: Config, logger: Optional[Logger] = None,
-            device="cuda") -> Dict:
+            device="cuda", devices=None) -> Dict:
     """Train the plain VAE for ``cfg.epochs``, then sweep ``--load_path``;
     returns the last epoch's {Avg Loss, FID}, ``images_per_sec``, the last
-    step's metrics (``step_metrics``) and the sweep's records."""
-    run = _Run(cfg, VAEExperiment, logger, device)
+    step's metrics (``step_metrics``) and the sweep's records.
+    ``devices``: an explicit device group to run on, one rank each."""
+    return _parallel(_run_vae, cfg, logger, device, devices)
+
+
+def _run_vae(cfg: Config, logger, device, mesh=None) -> Dict:
+    run = _Run(cfg, VAEExperiment, logger, device, mesh)
     exp = run.exp
 
-    def progress(i, m, x):
+    def progress(i, m, b):
         print(f"Train Epoch: {epoch} [{i}/{len(run.train_loader)}] "
-              f"Loss: {float(m['loss']) / x.shape[0]:.6f}", flush=True)
+              f"Loss: {float(m['loss']) / b:.6f}", flush=True)
 
     for epoch in run.epochs():
         avg = run.train_epoch(("loss",), progress)["loss"]
         run.checkpoint(epoch)
         run.emitter.emit(
             _maybe_fid_async(cfg, exp.decode, epoch, cfg.fid_path_samples,
-                             device=run.device),
+                             device=run.device, mesh=mesh),
             lambda fid, e=epoch, a=avg: {"Epoch": e, "Avg Loss": a,
                                          "FID": fid},
             f"====> Epoch: {epoch} Average loss: {avg:.4f} FID: {{fid}} "
@@ -393,15 +503,19 @@ def run_vae(cfg: Config, logger: Optional[Logger] = None,
 
 
 def run_gan(cfg: Config, logger: Optional[Logger] = None,
-            device="cuda") -> Dict:
+            device="cuda", devices=None) -> Dict:
     """Train the DCGAN for ``cfg.epochs``, then sweep ``--load_path``;
     returns the last epoch's {Avg Loss G, Avg Loss E, FID} ("Avg Loss E"
     holding the average D loss), ``images_per_sec``, ``step_metrics`` and
-    the sweep's records."""
-    run = _Run(cfg, GANExperiment, logger, device)
+    the sweep's records. ``devices`` as for :func:`run_vae`."""
+    return _parallel(_run_gan, cfg, logger, device, devices)
+
+
+def _run_gan(cfg: Config, logger, device, mesh=None) -> Dict:
+    run = _Run(cfg, GANExperiment, logger, device, mesh)
     exp = run.exp
 
-    def progress(i, m, x):
+    def progress(i, m, b):
         print(f"[{epoch}/{cfg.epochs}][{i}/{len(run.train_loader)}] "
               f"Loss_D: {float(m['errD']):.4f} "
               f"Loss_G: {float(m['errG']):.4f} D(x): {float(m['D_x']):.4f} "
@@ -414,7 +528,7 @@ def run_gan(cfg: Config, logger: Optional[Logger] = None,
         g, d = avg["errG"], avg["errD"]
         run.emitter.emit(
             _maybe_fid_async(cfg, exp.generate, epoch, cfg.fid_path_samples,
-                             device=run.device),
+                             device=run.device, mesh=mesh),
             lambda fid, e=epoch, a=g, b=d: {"Epoch": e, "Avg Loss G": a,
                                             "Avg Loss E": b, "FID": fid},
             f"====> Epoch: {epoch} Average loss G: {g:.4f} "
@@ -424,11 +538,16 @@ def run_gan(cfg: Config, logger: Optional[Logger] = None,
 
 
 def run_vaegan(cfg: Config, logger: Optional[Logger] = None,
-               device="cuda") -> Dict:
+               device="cuda", devices=None) -> Dict:
     """Train the β-VAE-GAN for ``cfg.epochs``, then sweep ``--load_path``;
     returns the last epoch's {Avg Eec Loss, Avg Dis Loss, FID},
-    ``images_per_sec``, ``step_metrics`` and the sweep's records."""
-    run = _Run(cfg, VAEGANExperiment, logger, device)
+    ``images_per_sec``, ``step_metrics`` and the sweep's records.
+    ``devices`` as for :func:`run_vae` (the β search's groups)."""
+    return _parallel(_run_vaegan, cfg, logger, device, devices)
+
+
+def _run_vaegan(cfg: Config, logger, device, mesh=None) -> Dict:
+    run = _Run(cfg, VAEGANExperiment, logger, device, mesh)
     exp = run.exp
     for epoch in run.epochs():
         avg = run.train_epoch(("recon_enc", "recon_dec", "dis", "D_x"))
@@ -438,7 +557,7 @@ def run_vaegan(cfg: Config, logger: Optional[Logger] = None,
         # (new_betavaegan.py:234)
         run.emitter.emit(
             _maybe_fid_async(cfg, exp.decode, epoch, cfg.fid_path_recons,
-                             device=run.device),
+                             device=run.device, mesh=mesh),
             lambda fid, e=epoch, a=enc_l, b=dec_l, c=dis_l: {
                 "Epoch": e, "Avg Eec Loss": a, "Avg Dnc Loss": b,
                 "Avg Dis Loss": c, "FID": fid},
@@ -460,19 +579,26 @@ def sweep_epoch(epoch: int, previous: int) -> int:
 
 
 def _eval_sweep(cfg: Config, exp, sample_fn: Callable,
-                recon_fn: Optional[Callable], test_loader, device) -> list:
+                recon_fn: Optional[Callable], test_loader, device,
+                mesh: Optional[Mesh] = None) -> list:
     """For each ``--load_path`` checkpoint, as the flags ask: FID over
     ``n_samples`` samples into ``fid_path_samples``, a reconstruction grid
     of the first test batch (and its originals), a grid of 5 samples.
-    Returns one {path, Epoch, FID} record a checkpoint."""
+    Returns one {path, Epoch, FID} record a checkpoint. Under a mesh the
+    ranks share the FID's pool3, and rank 0 alone prints and writes."""
+    main = mesh is None or mesh.is_main
     records, previous = [], 0
     for path in cfg.load_path:
-        epoch = previous = sweep_epoch(_restore(exp, path), previous)
+        epoch = previous = sweep_epoch(_restore(exp, path, mesh), previous)
         fid = "N/A"
         if cfg.calc_fid:
             fid = _maybe_fid(cfg, sample_fn, epoch, cfg.fid_path_samples,
-                             device=device)
-            print(f"Calculated FID: {fid}", flush=True)
+                             device=device, mesh=mesh)
+            if main:
+                print(f"Calculated FID: {fid}", flush=True)
+        if not main:
+            records.append({"path": path, "Epoch": epoch, "FID": fid})
+            continue
         if cfg.test_recons and recon_fn is not None:
             gen_reconstructions(
                 recon_fn, test_loader, epoch, cfg.test_results_path_recons,
@@ -488,19 +614,24 @@ def _eval_sweep(cfg: Config, exp, sample_fn: Callable,
 
 
 def run_family(cfg: Config, logger: Optional[Logger] = None,
-               device="cuda") -> Dict:
+               device="cuda", devices=None) -> Dict:
     """Train ``cfg.dataset``'s model family (birds or mnist) for
     ``cfg.epochs`` on the train loader; returns the last epoch's {Avg Loss,
     Avg Recon Loss, FID}, ``images_per_sec`` and the last step's metrics
     (``step_metrics``). One ``--load_path`` resumes; more than one raises,
-    as the families have no evaluation sweep."""
+    as the families have no evaluation sweep. ``devices`` as for
+    :func:`run_vae`."""
     if len(cfg.load_path) > 1:
         # the celebA runners sweep several checkpoints; training a family
         # from scratch over the listed ones would be the worst outcome
         raise ValueError(
             "birds/mnist take exactly one --load_path (resume); "
             "multi-checkpoint eval sweeps are celebA-only")
-    run = _Run(cfg, FamilyExperiment, logger, device)
+    return _parallel(_run_family, cfg, logger, device, devices)
+
+
+def _run_family(cfg: Config, logger, device, mesh=None) -> Dict:
+    run = _Run(cfg, FamilyExperiment, logger, device, mesh)
     exp = run.exp
     for epoch in run.epochs():
         avg = run.train_epoch(("loss", "recon"))
@@ -509,7 +640,7 @@ def run_family(cfg: Config, logger: Optional[Logger] = None,
         # FID needs 3-channel n_hidden decodes: only birds gives them
         run.emitter.emit(
             _maybe_fid_async(cfg, exp.decode, epoch, cfg.fid_path_samples,
-                             device=run.device)
+                             device=run.device, mesh=mesh)
             if cfg.dataset == "birds" else _instant_na(),
             lambda fid, e=epoch, a=loss, r=recon: {
                 "Epoch": e, "Avg Loss": a, "Avg Recon Loss": r, "FID": fid},

@@ -36,6 +36,13 @@ On the CPU it runs the K steps eagerly, one after another.
   addresses. The graph owns its ``fused_linear`` split-K scratch
   (ops/fused_linear.py ``GraphScope``), and each replay adds the kernel
   launches its capture recorded to the kernels' counts.
+- **Meshes.** An experiment on a NCCL mesh (parallel/mesh.py) is captured
+  with its collectives: BatchNorm's all-reduces forward and backward, the
+  gradients' and the metrics'. The process group exists and its
+  communicator has run (the state's broadcast, the warm-up steps) before
+  the capture. gloo stages CUDA tensors through the host, which no graph
+  can hold: an experiment on a gloo mesh of CUDA devices is refused here,
+  and the trainer steps it eagerly.
 """
 
 from __future__ import annotations
@@ -79,6 +86,13 @@ class MultiStep:
             raise ValueError(f"K must be at least 1, got {k}")
         self.exp, self.k = exp, k
         self.device = torch.device(exp.device)
+        mesh = getattr(exp, "mesh", None)
+        if self.device.type == "cuda" and mesh is not None \
+                and mesh.backend != "nccl":
+            raise ValueError(
+                f"a CUDA graph cannot hold {mesh.backend}'s host-staged "
+                f"collectives; step an experiment on a {mesh.backend} mesh "
+                f"eagerly")
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._state = state_tensors(exp)
 

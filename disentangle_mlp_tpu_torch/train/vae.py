@@ -2,7 +2,9 @@
 batch (disentangle_mlp_tpu/train/vae.py; reference experiments/new_vae.py).
 
 The reparameterization ε comes from the experiment's noise generator
-unless the caller passes it (``draws``), which the parity tests do.
+unless the caller passes it (``draws``), which the parity tests do. Under a
+mesh each rank steps on its rows of the global batch, as
+train/vaegan.py describes.
 """
 
 from __future__ import annotations
@@ -12,11 +14,12 @@ from typing import Dict, Optional
 import torch
 
 from ..config import Config
+from ..models.layers import set_mesh
 from ..models.vae import VAE
 from ..ops.losses import vae_loss
 from ..utils.params import adam_from_jax, adam_to_jax
 from .common import (DTYPES, Adam, grads, load_model_state, model_state,
-                     sampling)
+                     rank_rows, reduce_grads, reduce_metrics, sampling)
 
 
 class VAESampling:
@@ -49,9 +52,12 @@ class VAEExperiment(VAESampling):
     """The VAE, its Adam and the per-batch ``train_step``; the module is
     updated in place."""
 
-    def __init__(self, cfg: Config, device: torch.device):
+    def __init__(self, cfg: Config, device: torch.device, mesh=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.world = mesh.size if mesh is not None else 1
+        self.device = mesh.device if mesh is not None else \
+            torch.device(device)
         init = torch.Generator().manual_seed(cfg.seed)
         self.vae = VAE(
             n_hidden=cfg.n_hidden, n_z=tuple(cfg.n_z),
@@ -62,16 +68,18 @@ class VAEExperiment(VAESampling):
             dtype=DTYPES[cfg.dtype], bn_groups=cfg.bn_groups, generator=init,
         ).to(self.device)
         self.vae.train()
+        set_mesh(self.vae, mesh)
         self.params = list(self.vae.parameters())
         self.opt = Adam(self.params, cfg.lr, DTYPES[cfg.optimizer_dtype])
         self.noise_gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 2)
 
     def draw(self, batch_size: int) -> Dict:
-        """One step's random draws: the reparameterization ε."""
-        return {"eps": torch.randn((batch_size, self.cfg.n_hidden),
-                                   generator=self.noise_gen,
-                                   device=self.device)}
+        """One step's random draws for this rank's ``batch_size`` rows: the
+        reparameterization ε."""
+        return {"eps": rank_rows(torch.randn(
+            (batch_size * self.world, self.cfg.n_hidden),
+            generator=self.noise_gen, device=self.device), self.mesh)}
 
     def train_step(self, batch: torch.Tensor,
                    draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
@@ -82,8 +90,8 @@ class VAEExperiment(VAESampling):
                               device=self.device)
         recon, mu, logvar = self.vae(batch, eps=eps)
         loss = vae_loss(recon, batch, mu, logvar)
-        self.opt.step(grads(loss, self.params))
-        return {"loss": loss.detach()}
+        self.opt.step(reduce_grads(grads(loss, self.params), self.mesh))
+        return reduce_metrics({"loss": loss.detach()}, self.mesh)
 
     def states(self) -> Dict:
         """{"model"} in the JAX package's checkpoint layout."""

@@ -26,6 +26,13 @@ phase 2.
 β is a runtime argument. The labels, the noise and each phase's ε come
 from the experiment's generators unless the caller passes them
 (``draws``), which the parity tests do.
+
+Under a mesh (``mesh``: parallel/mesh.py) each rank steps on its rows of
+the global batch: BatchNorm statistics of the global batch, each loss term
+this rank's share of the global one (sums local, means over the rank
+count), the gradients summed over the ranks before each Adam step, the
+draws the global batch's from identically seeded generators, this rank's
+rows kept, and the metrics those of the global batch.
 """
 
 from __future__ import annotations
@@ -36,11 +43,14 @@ import torch
 
 from ..config import Config
 from ..models.gan import DiscriminatorCeleba
+from ..models.layers import set_mesh
 from ..models.vae import VAE
-from ..ops.losses import bce_logits, kld, reconstruction_loss, sim_loss
+from ..ops.losses import (bce_logits, kld, reconstruction_loss, share,
+                          sim_loss)
 from ..utils.params import adam_from_jax, adam_to_jax
 from .common import (DTYPES, Adam, frozen, grads, label_tensor,
-                     load_model_state, model_state, sample_labels)
+                     load_model_state, model_state, rank_rows, reduce_grads,
+                     reduce_metrics, sample_labels)
 from .vae import VAESampling
 
 
@@ -48,9 +58,12 @@ class VAEGANExperiment(VAESampling):
     """The models, their optimizers and the per-batch ``train_step``; the
     modules are updated in place."""
 
-    def __init__(self, cfg: Config, device: torch.device):
+    def __init__(self, cfg: Config, device: torch.device, mesh=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.world = mesh.size if mesh is not None else 1
+        self.device = mesh.device if mesh is not None else \
+            torch.device(device)
         dtype = DTYPES[cfg.dtype]
         init = torch.Generator().manual_seed(cfg.seed)
         self.vae = VAE(
@@ -69,6 +82,8 @@ class VAEGANExperiment(VAESampling):
         ).to(self.device)
         self.vae.train()
         self.discriminator.train()
+        set_mesh(self.vae, mesh)
+        set_mesh(self.discriminator, mesh)
         self.intent = cfg.freeze_mode == "intent"
         self.beta = float(cfg.beta)
         moments = DTYPES[cfg.optimizer_dtype]
@@ -88,12 +103,13 @@ class VAEGANExperiment(VAESampling):
             cfg.seed + 2)
 
     def draw(self, batch_size: int) -> Dict:
-        """One step's random draws: labels, noise and the two ε."""
-        shape = (batch_size, self.cfg.n_hidden)
+        """One step's random draws for this rank's ``batch_size`` rows:
+        labels, noise and the two ε."""
+        shape = (batch_size * self.world, self.cfg.n_hidden)
 
         def normal():
-            return torch.randn(shape, generator=self.noise_gen,
-                               device=self.device)
+            return rank_rows(torch.randn(shape, generator=self.noise_gen,
+                                         device=self.device), self.mesh)
 
         labels = label_tensor(sample_labels(self.label_gen), self.device)
         return {"labels": labels, "noise": normal(), "eps_dec": normal(),
@@ -122,9 +138,11 @@ class VAEGANExperiment(VAESampling):
         fake = fake_graph.detach()
         l_real, _ = self._d(batch)
         l_fake, _ = self._d(fake)
-        loss_d = bce_logits(l_real, real_l) + bce_logits(l_fake, fake_l)
-        self.opt_d.step(grads(loss_d, self.d_params))
-        d_x = torch.sigmoid(l_real.detach()).mean()
+        w, mesh = self.world, self.mesh
+        loss_d = (bce_logits(l_real, real_l, w)
+                  + bce_logits(l_fake, fake_l, w))
+        self.opt_d.step(reduce_grads(grads(loss_d, self.d_params), mesh))
+        d_x = share(torch.sigmoid(l_real.detach()).mean(), w)
 
         # ---------------- (2) Decoder ---------------------------------------
         with torch.no_grad():
@@ -135,10 +153,10 @@ class VAEGANExperiment(VAESampling):
             recon, _, _ = self.vae(batch, eps=eps_dec)
             l_recon, sim_recon = self._d(recon)
             s_loss = sim_loss(sim_recon, sim_real)
-            loss_dec = (bce_logits(l_fake2, real_l)
-                        + bce_logits(l_recon, real_l)
+            loss_dec = (bce_logits(l_fake2, real_l, w)
+                        + bce_logits(l_recon, real_l, w)
                         + s_loss + reconstruction_loss(recon, batch))
-            g = grads(loss_dec, eg_params)
+            g = reduce_grads(grads(loss_dec, eg_params), mesh)
         (self.opt_eg["dec"] if self.intent else self.opt_eg).step(g)
         del fake_graph
 
@@ -148,14 +166,17 @@ class VAEGANExperiment(VAESampling):
             recon, mu, logvar = self.vae(batch, eps=eps_enc)
             k_loss = beta * kld(mu, logvar)
             r_loss = reconstruction_loss(recon, batch)
-            g = grads(k_loss + r_loss, enc_train)
+            g = reduce_grads(grads(k_loss + r_loss, enc_train), mesh)
         (self.opt_eg["enc"] if self.intent else self.opt_eg).step(g)
 
         # both "enc" and "dec" running losses accumulate the encoder-phase
         # pixel MSE, and "dis" holds mean D(x) (new_betavaegan.py:107,189-190)
-        r = r_loss.detach()
-        return {"recon_enc": r, "recon_dec": r, "dis": d_x, "D_x": d_x,
-                "kld": k_loss.detach(), "sim": s_loss.detach()}
+        m = reduce_metrics({"recon": r_loss.detach(), "D_x": d_x,
+                            "kld": k_loss.detach(), "sim": s_loss.detach()},
+                           mesh)
+        return {"recon_enc": m["recon"], "recon_dec": m["recon"],
+                "dis": m["D_x"], "D_x": m["D_x"], "kld": m["kld"],
+                "sim": m["sim"]}
 
     def states(self) -> Dict:
         """{"eg", "d"} in the JAX package's checkpoint layout; the

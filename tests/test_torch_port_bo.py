@@ -211,10 +211,14 @@ def test_port_group_objectives_train_two_betas_concurrently(tmp_path):
 
 
 def test_port_group_objectives_refuse_what_they_cannot_run(tmp_path):
-    cfg = Config(**_toy_kwargs(tmp_path, "g"))
+    cfg = Config(**_toy_kwargs(tmp_path, "g", batch_size_train=3))
     cpu = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        driver.make_group_objectives(cfg, 1, devices=[cpu, cpu])
+    # a group of two devices trains data-parallel: the batch must split
+    (pair,) = driver.make_group_objectives(cfg, 1, devices=[cpu, cpu])
+    assert pair.devices == [cpu, cpu]
+    with pytest.raises(ValueError, match="must divide the explicit "
+                                         "2-device group"):
+        pair(25.0)
     for n in (0, 3):
         with pytest.raises(ValueError) as got:
             driver.make_group_objectives(cfg, n, devices=[cpu, cpu])

@@ -112,7 +112,9 @@ def test_port_checkpoint_rotation_and_resume(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra, error, match", [
-    (["--mesh_shape", "2"], NotImplementedError, "not yet ported"),
+    # BatchNorm groups that two ranks cannot split into whole groups
+    (["--mesh_shape", "2", "--bn_groups", "3", "--batch_size_train", "6"],
+     ValueError, "bn_groups=3 does not split into whole groups over 2"),
 ])
 def test_port_trainer_refuses_unported_paths(tmp_path, extra, error, match):
     with pytest.raises(error, match=match):
@@ -456,7 +458,8 @@ def test_port_fid_programming_error_reraises(tmp_path, monkeypatch):
 
     monkeypatch.setattr(port_fid, "frechet_from_acts", boom)
     monkeypatch.setattr(port_fid, "get_activations",
-                        lambda x: np.zeros((x.shape[0], 2048), np.float32))
+                        lambda x, **kwargs: np.zeros((x.shape[0], 2048),
+                                                     np.float32))
     cfg = Config(**_toy_kwargs(tmp_path, "boom",
                                fid_path_pretrained=_stats_npz(tmp_path),
                                fid_save_samples=False)).finalize()
