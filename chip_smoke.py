@@ -103,10 +103,14 @@ Phases, each fatal on failure:
    2`` on one card raising the ValueError naming 1 visible device;
    ``cli.reproduce`` (statistics, calibration, β=25 for 2 epochs of 2
    steps with FID, the report's fields, each part timed) and its
-   ``--assets_check``; a reference ``.tar`` written here at full width,
-   converted by ``cli.convert`` (leaves checked against the layout rules)
-   and resumed by the trainer for one epoch of 2 steps. Launches checked as
-   in phase 5;
+   ``--assets_check``; ``cli.fetch_assets`` (``[fetch]``), offline with
+   ``--mnist`` (exit 1, the plan, nothing written), a ``file://``
+   download installed with its sha256 prefix and refused with a wrong
+   one, and phase 6's idx pair installed gzipped under the four MNIST
+   names through ``_verify_idx``; a reference ``.tar`` written here at
+   full width, converted by ``cli.convert`` (leaves checked against the
+   layout rules) and resumed by the trainer for one epoch of 2 steps.
+   Launches checked as in phase 5;
 12b. data parallelism (parallel/mesh.py) on the one card: ``[ddp] nccl
    w1``, the full-width β-VAE-GAN 'observed' on the explicit group
    [cuda:0] over NCCL, world 1, 4 trainer steps (the first eager, then the
@@ -1713,6 +1717,135 @@ def reproduce_run(fl, pin, card: str) -> tuple:
     return launches, by_path
 
 
+def fetch_check(mnist_dir: str, card: str) -> None:
+    """``cli.fetch_assets`` on this machine, which has no JAX, and nothing
+    of it reaches the network: offline with ``--mnist`` into a new
+    ``--dest`` it exits 1, plans the FID weights (or reports them present)
+    and the four idx files, and writes nothing under ``--dest``; a
+    ``file://`` download is installed with its true sha256 prefix and
+    refused, leaving nothing behind, with a wrong one; the idx pair phase 6
+    wrote, gzipped under the four published names, is installed through
+    ``_verify_idx`` (a canonical-shape check refuses these 4096-image
+    files), after which ``find_mnist_files`` finds both pairs and the
+    command reports them present."""
+    import contextlib
+    import gzip
+    import io
+    from pathlib import Path
+
+    import numpy as np
+
+    from disentangle_mlp_tpu_torch.cli import fetch_assets as fa
+    from disentangle_mlp_tpu_torch.data.pipeline import (_read_idx,
+                                                         find_mnist_files)
+
+    t0 = time.perf_counter()
+    root = os.path.join(RUN_DIR, "fetch")
+    dest = os.path.join(root, "dest")
+
+    def offline(argv):
+        buf = io.StringIO()
+        code = 0
+        with contextlib.redirect_stdout(buf):
+            try:
+                fa.main(argv)
+            except SystemExit as e:
+                code = e.code
+        return code, buf.getvalue()
+
+    code, out = offline(["--dest", dest, "--mnist"])
+    planned = [ln.split("-> ", 1)[1] for ln in out.splitlines()
+               if ln.startswith("    -> ")]
+    idx_names = [m["file"] for m in fa.MNIST_FILES]
+    want = [os.path.join(dest, "mnist", n) for n in idx_names]
+    present = "FID Inception weights already present" in out
+    if not present:
+        want.insert(0, os.path.join(dest, fa.FID_WEIGHTS["file"]))
+    if code != 1 or planned != want or os.path.exists(dest):
+        fail(f"fetch: offline run exited {code}, planned {planned} (want "
+             f"{want}), dest written {os.path.exists(dest)}:\n{out}")
+    weights = ("already present" if present
+               else f"planned ({fa.FID_WEIGHTS['file']})")
+    say(f"[fetch] offline --mnist: exit {code}, FID weights {weights}, "
+        f"{len(planned) - (not present)} idx files planned "
+        f"({', '.join(idx_names)}), nothing written under --dest")
+
+    # a file:// download: installed with its digest prefix, else refused
+    os.makedirs(root, exist_ok=True)
+    payload = np.random.default_rng(0).bytes(1 << 20)
+    src = os.path.join(root, "payload.bin")
+    with open(src, "wb") as f:
+        f.write(payload)
+    digest = hashlib.sha256(payload).hexdigest()
+    wrong = ("f" if digest[0] != "f" else "0") + digest[1:8]
+    inst = os.path.join(root, "installed")
+    good = os.path.join(inst, fa.FID_WEIGHTS["file"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        fa._download(Path(src).as_uri(), good, digest[:8])
+        try:
+            fa._download(Path(src).as_uri(), os.path.join(inst, "bad.pth"),
+                         wrong)
+            refused = ""
+        except RuntimeError as e:
+            refused = str(e)
+    with open(good, "rb") as f:
+        installed = f.read() == payload
+    left = sorted(os.listdir(inst))
+    if not (installed and "digest mismatch" in refused
+            and left == [fa.FID_WEIGHTS["file"]]):
+        fail(f"fetch: file:// download installed {installed}, wrong prefix "
+             f"{refused!r}, left {left}")
+    reason = refused.split(" for ")[0]
+    say(f"[fetch] file:// download of {len(payload)} bytes: installed with "
+        f"prefix {digest[:8]}, refused with {wrong} ({reason}), left {left}")
+
+    # phase 6's idx pair, gzipped under the four names, installed
+    gz_dir = os.path.join(root, "gz")
+    os.makedirs(gz_dir, exist_ok=True)
+    mdest = os.path.join(root, "mnist")
+    shapes = {}
+    for name in idx_names:
+        kind = "images" if "images" in name else "labels"
+        raw = glob.glob(os.path.join(mnist_dir, f"train-{kind}-idx*-ubyte"))
+        with open(raw[0], "rb") as f, gzip.open(
+                os.path.join(gz_dir, name), "wb") as g:
+            g.write(f.read())
+        shapes[name] = _read_idx(raw[0]).shape
+    canonical = dict(zip(idx_names, (m["shape"] for m in fa.MNIST_FILES)))
+    with contextlib.redirect_stdout(io.StringIO()):
+        try:
+            fa._download(Path(gz_dir, idx_names[0]).as_uri(),
+                         os.path.join(mdest, idx_names[0]),
+                         verify=lambda p: fa._verify_idx(
+                             p, canonical[idx_names[0]]))
+            shape_refused = ""
+        except RuntimeError as e:
+            shape_refused = str(e)
+        leftover = os.listdir(mdest)
+        for name in idx_names:
+            fa._download(Path(gz_dir, name).as_uri(),
+                         os.path.join(mdest, name),
+                         verify=lambda p, s=shapes[name]:
+                         fa._verify_idx(p, s))
+    found = [find_mnist_files(mdest, train=t) for t in (True, False)]
+    same = all(np.array_equal(_read_idx(os.path.join(mdest, n)),
+                              _read_idx(os.path.join(gz_dir, n)))
+               for n in idx_names)
+    code2, out2 = offline(["--dest", dest, "--mnist_dest", mdest,
+                           "--mnist"])
+    if not ("idx shape" in shape_refused and not leftover
+            and all(found) and same and fa._mnist_missing(mdest) == []
+            and "MNIST idx files already present" in out2):
+        fail(f"fetch: idx install refused {shape_refused!r}, leftover "
+             f"{leftover}, found {found}, same {same}, rerun:\n{out2}")
+    say(f"[fetch] idx files {idx_names} (shapes "
+        f"{[list(s) for s in shapes.values()]}) installed through "
+        f"_verify_idx; the canonical {list(canonical[idx_names[0]])} "
+        f"refused them, leaving nothing; find_mnist_files finds "
+        f"train and t10k; rerun: 'MNIST idx files already present', exit "
+        f"{code2}; {time.perf_counter() - t0:.2f} s; card {card}")
+
+
 def reference_tar(path: str) -> dict:
     """A reference β-VAE-GAN checkpoint at full width, as the reference's
     new_betavaegan.py:221-228 saves it: random tensors from a seed under
@@ -2637,6 +2770,8 @@ def main() -> None:
         bo_posterior(card)
         runs.append(bo_search(fl, pin, stats_path, card))
         runs.append(reproduce_run(fl, pin, card))
+        # the asset bootstrap, offline and through file:// URLs
+        fetch_check(mnist_dir, card)
         runs.append(convert_resume(fl, pin, card))
         # 12b. data parallelism on the one card
         runs.append(ddp_nccl_w1(fl, pin, card))

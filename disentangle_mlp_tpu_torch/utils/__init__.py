@@ -1,0 +1,3 @@
+from .logger import Logger
+
+__all__ = ["Logger"]
