@@ -6,8 +6,12 @@ GPU, from the root of a checkout:
 
 Phases, each fatal on failure:
 
-1. the card: name, nvidia-smi name and power limit; TF32 off for matmuls
-   and cuDNN;
+1. the card: name, nvidia-smi name and power limit; the device resolved
+   as every entry point of the port resolves it
+   (``train/loop.py::resolve_device``, which sets the port's float32
+   policy), and the TF32 switches for matmuls and cuDNN as it left them:
+   off (this script sets neither; the run fails if either is on, here and
+   after the phases that run the port's entry points in this process);
 2. build every CUDA kernel of the port from ``csrc/`` (one nvcc per source,
    started together; ptxas's registers and spills per kernel) and hold each
    against its plain PyTorch version on the card: ``fused_linear`` forward
@@ -119,8 +123,12 @@ Phases, each fatal on failure:
    launches a step; ``[ddp] gloo w2``, two spawned ranks sharing cuda:0
    over gloo, 3 eager steps of 128 rows a rank (a float32 control, then
    bf16 with bn_groups 1 and 2) against this process's steps on the whole
-   256 within DDP_TOL of the dtype, the ranks' state bit-identical, 21
-   fused_linear launches a bf16 step on each rank; ``[ddp]
+   256 within DDP_TOL of the dtype, the running statistics after the
+   encoder's two heads and the KL term at every step within
+   DDP_WALK_MULTIPLE times the JAX package's own two-device walk
+   (JAX_WALK), the ranks' state bit-identical, 21 fused_linear launches a
+   bf16 step on each rank; the ranks run under the port's float32 policy,
+   as ``parallel.spawn`` starts them; ``[ddp]
    fid``, pool3 of 1000 full-width decodes split over those ranks against
    one process, one per_image_normalize launch a rank; ``[train] mesh``,
    the trainer with --mesh_shape 2 on one card raising the ValueError
@@ -287,6 +295,32 @@ def card_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def tf32_on() -> bool:
+    import torch
+
+    return (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32)
+
+
+def tf32_state() -> str:
+    import torch
+
+    def word(on: bool) -> str:
+        return "on" if on else "off"
+
+    return (f"TF32 {word(torch.backends.cuda.matmul.allow_tf32)} for "
+            f"matmuls, {word(torch.backends.cudnn.allow_tf32)} for cuDNN")
+
+
+def need_float32(phase: str) -> None:
+    """Fails ``phase``, a float32 one, if TF32 is on: the port's entry
+    points leave both switches off (utils/runtime.py::float32_policy), and
+    every float32 bound here holds float32 computed as float32."""
+    if tf32_on():
+        fail(f"{phase}: {tf32_state()} in a float32 phase; the port's entry "
+             f"points leave both off")
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -2260,20 +2294,28 @@ DDP_RANKS = 2
 # statistic after the first step and after the last, as assert_allclose
 # with rtol 1e-3 and the leaf kind's atol. The float32 control takes that
 # file's float32 tolerances, the bf16 runs its bf16 ones. Two readings
-# are a random walk at full width in either dtype, as a BatchNorm-fed bias
-# is: the running statistics of the BatchNorms after the encoder's two
-# 16384-wide heads (mu_bn, lv_bn), and the KL term after the first step,
-# which reads those heads. Adam's sign-like first update moves each
-# element of mu_fc1 and lv_fc1 (33.5M each) whose gradient lies within
-# rounding noise by ±lr, and the BatchNorm statistics sum 16384 of them a
-# channel: after 3 steps the float32 control reads 0.10-0.29 in lv_bn's
-# running mean and 0.027 in mu_bn's (the float32 atol is 0.02), one
-# process in bf16 against float32 0.48 and 0.078, while the next
-# statistic, encoder.bn3's after a 3200-wide convolution, reads 0.64 of
-# its bound (this phase on an NVIDIA H100 80GB HBM3 at 700 W). They are
-# held after the first step (``stats1``, the KL at step 1) and printed
-# after the last. The phase runs under cudnn.deterministic, as [scan]
-# does: float32 cuDNN's default is not run-to-run deterministic
+# walk at full width in either dtype, as a BatchNorm-fed bias does: the
+# running statistics of the BatchNorms after the encoder's two 16384-wide
+# heads (mu_bn, lv_bn), and the KL term, which reads those heads. Adam's
+# sign-like update moves each element of mu_fc1 and lv_fc1 (33.5M each)
+# whose gradient lies within rounding noise by ±lr, one and two devices
+# round those gradients differently, and each channel's statistic sums
+# 16384 of them. The JAX package walks the same way: JAX_WALK is its own
+# walk, the full-width float32 β-VAE-GAN 'observed' at batch 256 on two
+# CPU devices against one, from one start with the same keys and this
+# phase's batches (the synthetic source at the config's seed), 3 steps
+# (``python -m tests.test_torch_port_walk --batch 256 --only jax`` on 8
+# CPU cores): per step, each walk leaf's largest |Δ| and the KL term's
+# relative difference, each as its largest up to that step (a walk's
+# envelope). The walk depends on the data: on uniform noise the running
+# variances and the KL term walk far less. At batch 32 the port's
+# two-rank walk on the CPU is 0.22-1.36 times the JAX package's
+# (tests/test_torch_port_walk.py, slow).
+# So each walk reading is held at every step to DDP_WALK_MULTIPLE times
+# JAX_WALK at that step, never below the bound its kind has without the
+# walk (the dtype's statistics atol, the KL term's metric bound). The
+# phase runs under cudnn.deterministic, as [scan] does: float32 cuDNN's
+# default is not run-to-run deterministic
 BF16_METRIC_RTOL = {"recon_enc": 1e-2, "recon_dec": 1e-2, "dis": 1e-2,
                     "D_x": 1e-2, "kld": 1e-1, "sim": 1e-1}
 DDP_TOL = {
@@ -2292,6 +2334,19 @@ DDP_BN_CANCELLED = {"conv1", "conv2", "conv3", "conv4", "mu_fc1", "lv_fc1",
 DDP_WALK_LEAVES = {f"encoder.{bn}.running_{s}" for bn in ("mu_bn", "lv_bn")
                    for s in ("mean", "var")}
 DDP_WALK_METRICS = {"kld"}
+JAX_WALK = {
+    "encoder.mu_bn.running_mean": (0.000555, 0.01025, 0.02752),
+    "encoder.mu_bn.running_var": (0.0001752, 0.004948, 0.01304),
+    "encoder.lv_bn.running_mean": (0.0005651, 0.1716, 0.4553),
+    "encoder.lv_bn.running_var": (0.0001333, 0.03643, 0.07329),
+    "kld": (0.003089, 0.02695, 0.1834),
+}
+DDP_WALK_MULTIPLE = 4.0
+
+
+def _ddp_walk_bound(key: str, step: int, floor: float) -> float:
+    """The bound of walk reading ``key`` after ``step`` (from 0)."""
+    return max(floor, DDP_WALK_MULTIPLE * JAX_WALK[key][step])
 
 
 def _ddp_leaf_kind(name: str) -> str:
@@ -2412,51 +2467,70 @@ def _ddp_leaves(exp) -> list:
             + list(net.named_buffers())]
 
 
+def _ddp_walk(exp) -> dict:
+    """The walk leaves of ``exp``, cloned."""
+    return {n: t.detach().clone() for n, t in exp.vae.named_buffers()
+            if n in DDP_WALK_LEAVES}
+
+
 def _ddp_steps(exp, batches) -> dict:
-    """``exp``'s eager steps on ``batches``: each step's metrics, the leaves
-    after the first step and after the last."""
-    metrics, first = [], None
+    """``exp``'s eager steps on ``batches``: each step's metrics and walk
+    leaves, every leaf after the first step and after the last."""
+    metrics, walk, first = [], [], None
     for x in batches:
         metrics.append({k: v.clone() for k, v in exp.train_step(x).items()})
+        walk.append(_ddp_walk(exp))
         if first is None:
             first = _ddp_leaves(exp)
-    return {"metrics": metrics, "first": first, "last": _ddp_leaves(exp)}
+    return {"metrics": metrics, "walk": walk, "first": first,
+            "last": _ddp_leaves(exp)}
 
 
 def _ddp_read(got: dict, want: dict, dtype: str) -> dict:
     """Two runs' readings: each metric's relative difference by step, and
     for each leaf kind the largest |a − b| / (atol + rtol·|b|) (> 1 fails,
     as assert_allclose) with its leaf, its largest |a − b| and largest
-    |b|; the running statistics after the first step as ``stats1``."""
+    |b|; the running statistics after the first step as ``stats1``; the
+    walk leaves after every step, each step to its own atol, as ``walk``
+    (with its step), and their largest |a − b| by step as ``walk_abs``."""
     tol = DDP_TOL[dtype]
     out = {"metrics": [{k: abs(float(m[k]) / float(w[k]) - 1) for k in w}
-                       for m, w in zip(got["metrics"], want["metrics"])]}
+                       for m, w in zip(got["metrics"], want["metrics"])],
+           "walk_abs": []}
+
+    def read(kind, name, a, b, atol, **more):
+        d = (a.double() - b.double()).abs()
+        ratio = (d / (atol + DDP_LEAF_RTOL * b.double().abs())).max()
+        if ratio.item() > out.get(kind, {"ratio": -1.0})["ratio"]:
+            out[kind] = {"ratio": ratio.item(), "leaf": name,
+                         "abs": d.max().item(),
+                         "scale": b.abs().max().item(), **more}
+        return d.max().item()
+
     for when in ("first", "last"):
         for (name, a), (_, b) in zip(got[when], want[when]):
             kind = _ddp_leaf_kind(name)
-            if when == "first":
-                if kind not in ("stats", "walk"):
-                    continue
-                kind = "stats1"
-            d = (a.double() - b.double()).abs()
-            atol = tol["stats" if kind in ("stats1", "walk") else kind]
-            ratio = (d / (atol + DDP_LEAF_RTOL * b.double().abs())).max()
-            if ratio.item() > out.get(kind, {"ratio": -1.0})["ratio"]:
-                out[kind] = {"ratio": ratio.item(), "leaf": name,
-                             "abs": d.max().item(),
-                             "scale": b.abs().max().item()}
+            if kind == "walk" or (when == "first" and kind != "stats"):
+                continue
+            kind = "stats1" if when == "first" else kind
+            read(kind, name, a, b, tol["stats" if kind == "stats1" else kind])
+    for i, (g, w) in enumerate(zip(got["walk"], want["walk"])):
+        out["walk_abs"].append({
+            name: read("walk", name, g[name], b,
+                       _ddp_walk_bound(name, i, tol["stats"]), step=i + 1)
+            for name, b in w.items()})
     return out
 
 
 def _ddp_metric_ratio(r: dict, tol: dict) -> float:
     """The largest metric difference over its bound, over the steps (a
-    random-walk metric at the first step only)."""
+    walk metric's bound after the walk)."""
     def bound(i, k):
         t = tol["metrics"][i]
-        return t[k] if isinstance(t, dict) else t
+        t = t[k] if isinstance(t, dict) else t
+        return _ddp_walk_bound(k, i, t) if k in DDP_WALK_METRICS else t
     return max(e / bound(i, k) for i, step in enumerate(r["metrics"])
-               for k, e in step.items()
-               if i == 0 or k not in DDP_WALK_METRICS)
+               for k, e in step.items())
 
 
 def _ddp_w2_rank(mesh, ref_path: str) -> dict:
@@ -2476,8 +2550,9 @@ def _ddp_w2_rank(mesh, ref_path: str) -> dict:
     from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
     import torch
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    if tf32_on():
+        raise RuntimeError(f"rank {mesh.rank}: {tf32_state()}; a spawned "
+                           f"rank sets the port's float32 policy")
     torch.backends.cudnn.deterministic = True
     ref = torch.load(ref_path, map_location="cuda")
     out = {"launches": {"fused_linear": 0, "per_image_normalize": 0},
@@ -2534,7 +2609,8 @@ def ddp_gloo_w2(fl, pin, card: str) -> list:
     float32 control, then bf16 with bn_groups 1 and 2), against this
     process's steps on the whole BATCH (same seeds, so the same draws):
     metrics, parameters and running statistics within DDP_TOL of the run's
-    dtype (beside what bf16 does to this process against float32, printed
+    dtype, the walk leaves and the KL term at every step within their walk
+    bounds (beside what bf16 does to this process against float32, printed
     for scale), every state tensor bit-identical across the ranks,
     fused_linear 21 launches a bf16 step on each rank; then FID activations
     of N_SAMPLES full-width decodes split over the ranks against this
@@ -2580,17 +2656,21 @@ def ddp_gloo_w2(fl, pin, card: str) -> list:
     def readings(r: dict) -> str:
         by_step = [{k: float(f"{e:.3e}") for k, e in step.items()}
                    for step in r["metrics"]]
-        leaves = {k: {"ratio": round(r[k]["ratio"], 4), "leaf": r[k]["leaf"],
+        leaves = {k: {**r[k], "ratio": round(r[k]["ratio"], 4),
                       "abs": float(f"{r[k]['abs']:.3e}"),
                       "scale": float(f"{r[k]['scale']:.3e}")}
                   for k in ("params", "cancelled", "stats1", "stats",
                             "walk")}
+        walk = [{k.replace("running_", ""): float(f"{v:.3e}")
+                 for k, v in sorted(step.items())} for step in r["walk_abs"]]
         return (f"metric relative differences by step "
                 f"{json.dumps(by_step)}; leaves (|a − b| / (atol + "
                 f"{DDP_LEAF_RTOL}·|b|), the leaf, its largest |a − b|, "
-                f"largest |b|; walk: {sorted(DDP_WALK_LEAVES)}, held after "
-                f"the first step only, as {sorted(DDP_WALK_METRICS)}) "
-                f"{json.dumps(leaves)}")
+                f"largest |b|; walk: the walk leaves after every step, as "
+                f"{sorted(DDP_WALK_METRICS)}, atol and bound "
+                f"max(the kind's, {DDP_WALK_MULTIPLE:g} × JAX_WALK)) "
+                f"{json.dumps(leaves)}; walk |a − b| by step "
+                f"{json.dumps(walk)}")
 
     say(f"[ddp] bf16 against float32, one process on {BATCH}, full width, "
         f"read against the float32 bounds: {readings(gap)}; metrics / "
@@ -2602,7 +2682,8 @@ def ddp_gloo_w2(fl, pin, card: str) -> list:
         tol = DDP_TOL[dtype]
         worst = max(max(_ddp_metric_ratio(r, tol),
                         *(r[k]["ratio"] for k in ("params", "cancelled",
-                                                   "stats1", "stats")))
+                                                   "stats1", "stats",
+                                                   "walk")))
                     for r in res)
         same = len({r["digest"] for r in res}) == 1
         say(f"[ddp] gloo w2 {dtype} bn_groups {groups}: β-VAE-GAN observed, "
@@ -2690,13 +2771,16 @@ def main() -> None:
     except ImportError as e:
         fail(f"the port's package is not importable from {REPO}: {e}")
 
-    # 1. the card
+    # 1. the card, resolved as the port's entry points resolve theirs
+    from disentangle_mlp_tpu_torch.train.loop import resolve_device
+
     kind = torch.cuda.get_device_name(0)
     card = card_line()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    device = resolve_device("cuda")
     say(f"[card] {kind}; nvidia-smi: {card}; torch {torch.__version__} "
-        f"CUDA {torch.version.cuda}; TF32 off")
+        f"CUDA {torch.version.cuda}; {device}: {tf32_state()}, as the "
+        f"port's resolve_device left it")
+    need_float32("[card]")
 
     # 2. build and check
     t0 = time.perf_counter()
@@ -2749,6 +2833,7 @@ def main() -> None:
                                "--calc_fid", "True",
                                "--fid_path_pretrained", stats_path],
             FAMILY_EPOCHS, fid=False, save=False, card=card))
+        need_float32("[train] mnist")  # as the trainer left the switches
         # 7. the FID phase, part by part
         split_dir, split_u8 = fid_split(stats_path, card)
         fid_split(stats_path, card, "birds")
@@ -2775,6 +2860,7 @@ def main() -> None:
         runs.append(convert_resume(fl, pin, card))
         # 12b. data parallelism on the one card
         runs.append(ddp_nccl_w1(fl, pin, card))
+        need_float32("[ddp] gloo w2")
         runs += ddp_gloo_w2(fl, pin, card)
         train_mesh(card)
         launches = {k: sum(r[0][k] for r in runs) for k in runs[0][0]}
@@ -2783,6 +2869,7 @@ def main() -> None:
             for k, v in paths.items():
                 by_path[k] = by_path.get(k, 0) + v
         # 10. FID statistics of a directory
+        need_float32("[fid] dir")
         fid_dir_stats(split_dir, split_u8, stats_path, card)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
@@ -2790,6 +2877,7 @@ def main() -> None:
     # 11. the six step kinds profiled, eager and graphed; the colour
     # fixture on the card
     time_graph(card)
+    need_float32("[time] graph")  # as profile_step left the switches
     data_color(card)
 
     # 13. report

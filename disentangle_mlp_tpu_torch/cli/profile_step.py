@@ -42,6 +42,7 @@ from ..data.pipeline import SyntheticSource
 from ..ops import fused_linear as fl
 from ..train.families import FAMILY_DATASETS, FamilyExperiment
 from ..train.gan import GANExperiment
+from ..train.loop import resolve_device
 from ..train.scan import make_multi_step
 from ..train.vae import VAEExperiment
 from ..train.vaegan import VAEGANExperiment
@@ -173,7 +174,7 @@ def measure(exp, x: torch.Tensor, variant: str) -> Dict:
 def profile(cfg: Config, model: str, kind: Optional[str] = None) -> Dict:
     """The three ways of stepping one experiment; see the module
     docstring."""
-    device = torch.device("cuda")
+    device = resolve_device("cuda")  # and the float32 policy
     if cfg.dataset in FAMILY_DATASETS:
         model = cfg.dataset
         exp = FamilyExperiment(cfg, device)

@@ -42,6 +42,8 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..utils.runtime import float32_policy
+
 DATA_AXIS = "data"
 
 
@@ -195,6 +197,7 @@ def free_port() -> int:
 
 
 def _worker(rank, fn, devices, port, conns, args, kwargs) -> None:
+    float32_policy()  # a spawned rank starts with PyTorch's defaults
     if torch.device(devices[rank]).type == "cpu":
         # the ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // len(devices)))

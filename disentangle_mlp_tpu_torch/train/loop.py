@@ -73,6 +73,7 @@ from ..parallel.mesh import (Mesh, broadcast_, make_mesh,
                              maybe_initialize_distributed, replicate, spawn)
 from ..utils.checkpoint import AsyncCheckpointer, load_checkpoint
 from ..utils.logger import Logger
+from ..utils.runtime import float32_policy
 from .families import FamilyExperiment
 from .gan import GANExperiment
 from .scan import MultiStep, make_multi_step, state_tensors
@@ -82,7 +83,10 @@ from .vaegan import VAEGANExperiment
 
 def resolve_device(name) -> torch.device:
     """The torch device for ``name``; a CUDA device that is not there is an
-    error, never a quiet move to the CPU."""
+    error, never a quiet move to the CPU. Every entry point resolves its
+    device here, so here the port's float32 policy is set (TF32 off,
+    utils/runtime.py)."""
+    float32_policy()
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

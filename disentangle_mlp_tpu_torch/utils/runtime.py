@@ -1,5 +1,15 @@
 """Process-level runtime of the port's CLIs (disentangle_mlp_tpu/utils/
-runtime.py): the ``--profile_dir`` trace.
+runtime.py): the float32 precision policy and the ``--profile_dir`` trace.
+
+``float32_policy()`` is the port's one precision policy: float32 means
+float32 on the card. PyTorch lets cuDNN compute float32 convolutions in
+TF32 (a 10-bit mantissa) unless told otherwise, and every float32
+tolerance of the port, against the JAX package on the CPU and between the
+card and the CPU, holds float32 computed as float32. So every entry point
+turns TF32 off for cuBLAS matmuls and for cuDNN before it builds a model:
+``train/loop.py::resolve_device`` calls it (the CLIs, the β search, the
+reproduction and the trainer's runs resolve their device there), and so do
+``parallel/mesh.py``'s spawned ranks. bf16 layers are untouched by it.
 
 ``setup(profile_dir, device)`` starts a ``torch.profiler`` trace of the
 process (CPU activities, and CUDA ones when ``device`` is a GPU) and
@@ -18,6 +28,14 @@ from typing import Optional
 
 _profiler = None
 _profile_dir: Optional[str] = None
+
+
+def float32_policy() -> None:
+    """TF32 off for cuBLAS matmuls and cuDNN convolutions, process-wide."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def setup(profile_dir: str = "", device="cpu") -> None:

@@ -96,8 +96,6 @@ CASES = {"step": step_case, "bn": bn_case, "fid": fid_case}
 
 
 def run_cases(mesh, cases: list) -> dict:
-    """Every case on this rank: {name: result}."""
-    if mesh.device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    """Every case on this rank: {name: result} (a spawned rank runs under
+    the port's float32 policy, TF32 off)."""
     return {c["name"]: CASES[c["run"]](mesh, c) for c in cases}
