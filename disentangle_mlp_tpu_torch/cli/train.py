@@ -12,7 +12,8 @@ whatever ``--model`` says (train/families.py; birds needs ``--img_size
 resumes training from a checkpoint of either package; for the CelebA
 experiments more than one, or ``--to_train False``, evaluates them
 (cli/evaluate.py). ``--profile_dir DIR`` writes a ``torch.profiler`` trace
-of the run there (utils/runtime.py), also when the run raises.
+of the run there (utils/runtime.py), also when the run raises, with the
+port's ``dmt.*`` spans and device marks on.
 
 ``--mesh_shape N`` trains data-parallel on N devices, one process a rank:
 this command spawns the ranks (N CPU ranks with ``--device cpu``), or, run

@@ -54,6 +54,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..utils import runtime
 from ..utils.image_io import PNG_SIGNATURE, decode_png
 
 NVJPEG_BACKEND = ("DEFAULT", 0)  # nvjpegBackend_t NVJPEG_BACKEND_DEFAULT
@@ -566,5 +567,11 @@ def decode_resize(datas: Sequence[bytes], names: Sequence[str],
                   out_size: int, device, num_threads: int = 0
                   ) -> torch.Tensor:
     """Files in memory → (N, out_size, out_size, 3) uint8 on ``device``:
-    :func:`decode`, then :func:`resize_u8`."""
-    return resize_u8(decode(datas, names, device, num_threads), out_size)
+    :func:`decode`, then :func:`resize_u8`; spans ``dmt.feed.decode`` with
+    ``.nvjpeg`` (the decoder: nvJPEG on the card, libjpeg on the CPU) and
+    ``.resize`` inside."""
+    with runtime.span("dmt.feed.decode"):
+        with runtime.span("dmt.feed.decode.nvjpeg"):
+            images = decode(datas, names, device, num_threads)
+        with runtime.span("dmt.feed.decode.resize"):
+            return resize_u8(images, out_size)

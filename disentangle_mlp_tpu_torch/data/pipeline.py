@@ -26,6 +26,17 @@ dataloader/dataset.py:9-52):
 - :func:`get_data_loader` for celebA, celebA_reduced, birds and mnist,
   with the synthetic fallback.
 
+Spans (utils/runtime.py, while the port's spans are on), on the
+iterating thread: ``dmt.feed`` around one batch's work, from taking it off
+the read thread's queue to the tensors yielded, and inside it
+``dmt.feed.queue`` (waiting for the read thread), ``dmt.feed.gather`` (the
+decode cache's gather), ``dmt.feed.normalize``, ``dmt.feed.decode``
+(data/native.py) and ``dmt.feed.sync``: every copy to the device that is
+ordered on the stream and so may wait for the device's queue (the index
+rows, the labels, the pinned copy of a host batch). Counter: ``warmup_s``,
+the host seconds the decode-cache warm-ups of the process have spent
+filling.
+
 The decode cache and its global budget (``DMT_DECODE_CACHE_BYTES``,
 default 4 GiB, shared by every live source of the process) apply to the
 train stream only. Not ported: the shardings and ``transfer_chunk`` of
@@ -38,6 +49,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 import weakref
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
@@ -45,6 +57,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import runtime
 from . import native
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".webp")
@@ -84,6 +97,9 @@ _DECODE_CACHE_LIMIT = int(os.environ.get(
     "DMT_DECODE_CACHE_BYTES", 4 * 1024 ** 3))
 _decode_cache_live_bytes = 0
 _decode_cache_lock = threading.Lock()
+# host seconds the cache warm-ups have spent in their fills
+warmup_s = 0.0
+_warmup_lock = threading.Lock()
 
 
 def _decode_cache_reserve(n_bytes: int, forced: bool) -> bool:
@@ -194,8 +210,10 @@ class ImageFolderSource:
             else:
                 miss, datas = indices[~self._cached[indices]], None
             if miss.size:
-                self._cache[torch.as_tensor(miss, device=self.device)] = \
-                    self._decode_u8(miss, datas)
+                rows = self._decode_u8(miss, datas)
+                with runtime.span("dmt.feed.sync"):
+                    where = torch.as_tensor(miss, device=self.device)
+                self._cache[where] = rows
                 self._cached[miss] = True
 
     def read_ahead(self, indices: np.ndarray):
@@ -216,8 +234,10 @@ class ImageFolderSource:
             return self._decode_u8(indices, ahead[1] if ahead else None), \
                 labels
         self._fill(indices, ahead)
-        return self._cache[torch.as_tensor(indices, device=self.device)], \
-            labels
+        with runtime.span("dmt.feed.sync"):
+            where = torch.as_tensor(indices, device=self.device)
+        with runtime.span("dmt.feed.gather"):
+            return self._cache[where], labels
 
     def load_batch(self, indices: np.ndarray) -> Tuple[np.ndarray,
                                                        np.ndarray]:
@@ -245,8 +265,13 @@ class ImageFolderSource:
                else np.asarray(order))
 
         def work():
+            global warmup_s
             for s in range(0, idx.size, chunk):
+                t0 = time.perf_counter()
                 self._fill(idx[s:s + chunk])
+                dt = time.perf_counter() - t0
+                with _warmup_lock:
+                    warmup_s += dt
 
         t = threading.Thread(target=work, daemon=True, name="dmt-decode-warm")
         self._warm_thread = t
@@ -486,9 +511,10 @@ class DataLoader:
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
         if t.device.type != "cpu":  # decoded on the device already
             return t.to(self.device)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        with runtime.span("dmt.feed.sync"):
+            if self.device.type == "cuda":
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t.to(self.device)
 
     def _normalize(self, u8: torch.Tensor) -> torch.Tensor:
         mean, std = getattr(self.source, "normalize",
@@ -542,20 +568,26 @@ class DataLoader:
         threading.Thread(target=read, name="dmt-read", daemon=True).start()
         try:
             while True:
-                item = q.get()
-                if item is None:
-                    return
-                if isinstance(item, BaseException):
-                    raise item
-                b, got = item
-                if ahead:
-                    x, y = src.load_batch_u8(b, got)
-                else:
-                    x, y = got
-                x = self._to_device(x)
-                if use_u8:
-                    x = self._normalize(x)
-                yield x, torch.from_numpy(y).to(self.device)
+                # closed before the yield: the consumer's step is no feed
+                with runtime.span("dmt.feed"):
+                    with runtime.span("dmt.feed.queue"):
+                        item = q.get()
+                    if item is None:
+                        return
+                    if isinstance(item, BaseException):
+                        raise item
+                    b, got = item
+                    if ahead:
+                        x, y = src.load_batch_u8(b, got)
+                    else:
+                        x, y = got
+                    x = self._to_device(x)
+                    if use_u8:
+                        with runtime.span("dmt.feed.normalize"):
+                            x = self._normalize(x)
+                    with runtime.span("dmt.feed.sync"):
+                        y = torch.from_numpy(y).to(self.device)
+                yield x, y
         finally:
             stop.set()
 

@@ -33,6 +33,7 @@ import torch
 
 from ..ops.image_ops import per_image_normalize as _normalize_tensor
 from ..parallel.mesh import all_gather_rows
+from ..utils import runtime
 from ..utils.params import inception_from_jax
 from .inception import FEATURE_DIM, get_params_cached, pool3_features
 
@@ -87,8 +88,9 @@ def get_activations(images01: Images, batch_size: int = FID_BATCH,
         images01 = _normalize_tensor(images01)
     model = _inception(str(images01.device))
     feat_dtype = getattr(torch, dtype or FEATURE_DTYPE)
-    acts = [pool3_features(model, images01[i:i + batch_size], feat_dtype)
-            for i in range(0, images01.shape[0], batch_size)]
+    with runtime.span("dmt.fid.pool3"):
+        acts = [pool3_features(model, images01[i:i + batch_size], feat_dtype)
+                for i in range(0, images01.shape[0], batch_size)]
     if not acts:
         return np.empty((0, FEATURE_DIM), np.float32)
     out = torch.cat(acts)
@@ -194,17 +196,18 @@ def frechet_from_acts(acts: np.ndarray, mu2: np.ndarray,
     samples than feature dimensions take the sample-subspace path;
     otherwise the full statistics, where a precomputed ``sqrt_sigma2``
     gives tr√(Σ₁Σ₂) = tr√(√Σ₂ Σ₁ √Σ₂) with one eigvalsh."""
-    if acts.shape[0] < FEATURE_DIM:
-        return frechet_distance_from_samples(acts, mu2, sigma2)
-    m1, s1 = activation_statistics(acts)
-    if sqrt_sigma2 is None:
-        return frechet_distance(m1, s1, mu2, sigma2)
-    diff = np.asarray(m1, np.float64) - np.asarray(mu2, np.float64)
-    inner = sqrt_sigma2 @ np.asarray(s1, np.float64) @ sqrt_sigma2
-    w = np.linalg.eigvalsh((inner + inner.T) / 2.0)
-    tr_covmean = float(np.sum(np.sqrt(np.clip(w, 0.0, None))))
-    return float(diff @ diff + np.trace(s1) + np.trace(sigma2)
-                 - 2.0 * tr_covmean)
+    with runtime.span("dmt.fid.frechet"):
+        if acts.shape[0] < FEATURE_DIM:
+            return frechet_distance_from_samples(acts, mu2, sigma2)
+        m1, s1 = activation_statistics(acts)
+        if sqrt_sigma2 is None:
+            return frechet_distance(m1, s1, mu2, sigma2)
+        diff = np.asarray(m1, np.float64) - np.asarray(mu2, np.float64)
+        inner = sqrt_sigma2 @ np.asarray(s1, np.float64) @ sqrt_sigma2
+        w = np.linalg.eigvalsh((inner + inner.T) / 2.0)
+        tr_covmean = float(np.sum(np.sqrt(np.clip(w, 0.0, None))))
+        return float(diff @ diff + np.trace(s1) + np.trace(sigma2)
+                     - 2.0 * tr_covmean)
 
 
 def per_image_normalize(batch: Images) -> Images:

@@ -21,6 +21,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from ..utils import runtime
 from ..utils.image_io import save_image, save_image_grid, write_png
 
 
@@ -59,7 +60,8 @@ def generate_fid_samples(fn: Callable, epoch: int, n_samples: int,
 
     if z is None:
         z = _sample_latents(rng_seed, n_samples, n_hidden, device)
-    out = fn(z)
+    with runtime.span("dmt.fid.decode"):
+        out = fn(z)
     if save:
         write_sample_files(normalized_u8(out), epoch, results_path)
     return out

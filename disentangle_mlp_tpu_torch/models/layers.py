@@ -27,6 +27,7 @@ JAX package's families do: ``kernel_init="lecun"`` (a normal of variance
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Optional
 
@@ -36,8 +37,10 @@ from torch import nn
 
 from ..ops.fused_linear import LEAKY_SLOPE, fused_linear
 from ..parallel.mesh import all_reduce_sum, broadcast_
+from ..utils import runtime
 
 DCGAN_STD = 0.02
+_BN_IDS = itertools.count()
 
 
 def _normal(shape, std, generator):
@@ -176,6 +179,22 @@ class Linear(nn.Module):
                         activation)
 
 
+class _MarkBackward(torch.autograd.Function):
+    """The identity (a view, no kernel) whose backward places a mark: on a
+    BatchNorm's output it marks where the BatchNorm's backward begins, on
+    its input where it ends."""
+
+    @staticmethod
+    def forward(ctx, x, tag):
+        ctx.tag = tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        runtime.mark(ctx.tag, g)
+        return g, None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with torch semantics (eps 1e-5, running-stat decay 0.9,
     E[x²]−E[x]² variance, Bessel-corrected ``running_var``) over every axis
@@ -183,6 +202,12 @@ class BatchNorm(nn.Module):
     ``groups > 1`` emulates torch DataParallel: contiguous batch groups are
     normalized with their own statistics and only group 0 updates the
     running statistics (disentangle_mlp_tpu/models/layers.py _ManualBN).
+
+    While the port's spans are on (utils/runtime.py), each call places
+    device marks ``dmt.bn<k>#<call>.{fwd,bwd}.{begin,end}`` (k numbers the
+    BatchNorms in the order they were built) around its forward and its
+    backward, so a profile of a CUDA graph's replay can tell the
+    BatchNorms' kernels from the rest; the values computed are the same.
 
     Under a mesh (``mesh``, set by :func:`set_mesh`) the statistics are
     those of the global batch, as the JAX package's sharded step computes
@@ -201,6 +226,7 @@ class BatchNorm(nn.Module):
         self.dtype, self.groups = dtype, groups
         self.momentum, self.epsilon = momentum, epsilon
         self.mesh = None
+        self._trace_name, self._trace_calls = f"dmt.bn{next(_BN_IDS)}", 0
         self.weight = nn.Parameter(
             1.0 + _normal((features,), DCGAN_STD, generator))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -232,6 +258,17 @@ class BatchNorm(nn.Module):
         return mean, torch.clamp(mean2 - mean.square(), min=0.0), n
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        if not runtime.spans_on():
+            return self._normalize(x, train)
+        self._trace_calls += 1
+        tag = f"{self._trace_name}#{self._trace_calls}"
+        x = _MarkBackward.apply(x, tag + ".bwd.end")
+        runtime.mark(tag + ".fwd.begin", x)
+        y = self._normalize(x, train)
+        runtime.mark(tag + ".fwd.end", y)
+        return _MarkBackward.apply(y, tag + ".bwd.begin")
+
+    def _normalize(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         dt = self.dtype
         if train and self.groups > 1:
             return self._grouped(x)
@@ -286,12 +323,13 @@ class FlaxBatchNorm(BatchNorm):
         self.dtype, self.groups = dtype, 1
         self.momentum, self.epsilon = momentum, epsilon
         self.mesh = None
+        self._trace_name, self._trace_calls = f"dmt.bn{next(_BN_IDS)}", 0
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+    def _normalize(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.float()
         if train:

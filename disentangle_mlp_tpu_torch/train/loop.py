@@ -71,6 +71,7 @@ from ..eval.samples import (_sample_latents, gen_reconstructions,
 from ..models.layers import local_groups
 from ..parallel.mesh import (Mesh, broadcast_, make_mesh,
                              maybe_initialize_distributed, replicate, spawn)
+from ..utils import runtime
 from ..utils.checkpoint import AsyncCheckpointer, load_checkpoint
 from ..utils.logger import Logger
 from ..utils.runtime import float32_policy
@@ -285,7 +286,8 @@ def _maybe_fid_async(cfg: Config, decode_fn: Callable, epoch: int,
         if z is None:
             z = _sample_latents(cfg.seed + epoch, cfg.n_samples,
                                 cfg.n_hidden, device)
-        out = decode_fn(z)
+        with runtime.span("dmt.fid.decode"):
+            out = decode_fn(z)
         acts = fid_mod.get_activations(out, mesh=mesh, normalize=True)
         if not main:
             return _instant_na()
@@ -425,7 +427,8 @@ class _Run:
         every later step."""
         if not self.graphed:
             return self.exp.train_step(x)
-        draws = [self.exp.draw(x.shape[0])]
+        with runtime.span("dmt.step.draw"):
+            draws = [self.exp.draw(x.shape[0])]
         if self.graph is None:
             self.graph = make_multi_step(self.exp, 1)
             m = self.graph.step_and_capture(x[None], draws)

@@ -43,6 +43,14 @@ On the CPU it runs the K steps eagerly, one after another.
   the capture. gloo stages CUDA tensors through the host, which no graph
   can hold: an experiment on a gloo mesh of CUDA devices is refused here,
   and the trainer steps it eagerly.
+- **Tracing.** ``captures`` and ``replays`` count the graph's captures and
+  replays. While the port's spans are on (utils/runtime.py) the host's
+  parts carry ``dmt.graph.capture``, ``dmt.graph.copy_in`` and
+  ``dmt.graph.replay``, and a capture places a ``dmt.step.begin`` and a
+  ``dmt.step.end`` mark around each captured step (the BatchNorms place
+  theirs inside it); ``marks`` is the capture's table, the tags in the
+  order each replay runs them. A graph captured with spans off holds no
+  mark, and its table is empty.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ import torch
 from torch import nn
 
 from ..ops import fused_linear as fl
+from ..utils import runtime
 from .common import Adam, label_tensor
 
 Draws = Sequence[Dict]
@@ -95,6 +104,8 @@ class MultiStep:
                 f"eagerly")
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._state = state_tensors(exp)
+        self.captures = self.replays = 0
+        self.marks: List[str] = []
 
     def __call__(self, batches: torch.Tensor, draws: Optional[Draws] = None
                  ) -> Dict[str, torch.Tensor]:
@@ -170,15 +181,22 @@ class MultiStep:
         self._inputs = [{key: v.clone() for key, v in d.items()}
                         for d in draws]
         graph = torch.cuda.CUDAGraph()
-        with fl.graph_scope(scope, capturing=True), torch.cuda.graph(
-                graph, stream=stream, capture_error_mode="thread_local"):
-            outs = [self.exp.train_step(self._batches[i],
-                                        draws=self._inputs[i])
-                    for i in range(self.k)]
+        marks: List[str] = []
+        with runtime.span("dmt.graph.capture"), \
+                runtime.mark_table(stream, marks), \
+                fl.graph_scope(scope, capturing=True), torch.cuda.graph(
+                    graph, stream=stream, capture_error_mode="thread_local"):
+            outs = []
+            for i in range(self.k):
+                runtime.mark("dmt.step.begin", self._batches)
+                outs.append(self.exp.train_step(self._batches[i],
+                                                draws=self._inputs[i]))
+                runtime.mark("dmt.step.end", self._batches)
             self._keys = list(outs[0])
             self._out = torch.stack([torch.stack(
                 [o[key].float() for key in self._keys]) for o in outs])
-        self.graph, self._scope = graph, scope
+        self.graph, self._scope, self.marks = graph, scope, marks
+        self.captures += 1
         self._ptrs = [t.data_ptr() for t in self._state]
         return out
 
@@ -193,11 +211,14 @@ class MultiStep:
                                "the graph was captured; load states in "
                                "place (load_states) and keep the modules "
                                "where they are")
-        self._batches.copy_(batches)
-        for dst, src in zip(self._inputs, draws):
-            for key, v in dst.items():
-                v.copy_(src[key])
-        self.graph.replay()
+        with runtime.span("dmt.graph.copy_in"):
+            self._batches.copy_(batches)
+            for dst, src in zip(self._inputs, draws):
+                for key, v in dst.items():
+                    v.copy_(src[key])
+        with runtime.span("dmt.graph.replay"):
+            self.graph.replay()
+        self.replays += 1
         fl.replayed(self._scope)
         out = self._out.clone()
         return {key: out[:, j] for j, key in enumerate(self._keys)}

@@ -32,7 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from . import msgpack
+from . import msgpack, runtime
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -104,14 +104,15 @@ class AsyncCheckpointer:
     def save(self, path: str, epoch: int, states: Dict[str, Any],
              rotate_keep: int = 0) -> None:
         t0 = time.perf_counter()
-        self.wait()
-        snap = _map(_cast_opt_state(states, self._opt_state_dtype),
-                    lambda t: t.detach().clone())
-        leaf = next(_leaves(snap), None)
-        event = None
-        if leaf is not None and leaf.is_cuda:
-            event = torch.cuda.Event()
-            event.record()
+        with runtime.span("dmt.ckpt.save"):
+            self.wait()
+            snap = _map(_cast_opt_state(states, self._opt_state_dtype),
+                        lambda t: t.detach().clone())
+            leaf = next(_leaves(snap), None)
+            event = None
+            if leaf is not None and leaf.is_cuda:
+                event = torch.cuda.Event()
+                event.record()
         blocked = time.perf_counter() - t0
 
         def worker():

@@ -311,6 +311,91 @@ def test_port_graph_replay_refuses_moved_state(card):
         multi(xt)
 
 
+@contextlib.contextmanager
+def _spans(on: bool):
+    from disentangle_mlp_tpu_torch.utils import runtime
+
+    prev = runtime.spans_on()
+    runtime.set_spans(on)
+    try:
+        yield
+    finally:
+        runtime.set_spans(prev)
+
+
+def _graphed_run(which: str, spans_on: bool):
+    """The case's 3 steps as one graph captured with spans ``on`` or off,
+    replayed once under the profiler; returns the multi-step, its outputs
+    and state, and the replay's device kernels (name, start), in order."""
+    from disentangle_mlp_tpu_torch.train.scan import make_multi_step
+
+    cfg, make, x, draws = _make(which)
+    xt = torch.from_numpy(x.astype(np.float32)).cuda()
+    batches = xt.expand((STEPS,) + tuple(xt.shape))
+    dev_draws = [_device_draws(d, "cuda") for d in draws]
+    with _tf32_off(), _cudnn_deterministic():
+        exp = make(cfg, "cuda")
+        multi = make_multi_step(exp, STEPS)
+        with _spans(spans_on):
+            multi.capture(batches, dev_draws)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            out = multi(batches, dev_draws)
+            torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False))
+    tensors = [out[k] for k in sorted(out)] + [
+        t.detach().clone() for t in state_tensors(exp)]
+    return multi, tensors, [n for _, n in kernels]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["vae", "betavaegan_observed"])
+def test_port_graph_marks_replay_in_table_order(card, which):
+    """A graph captured with spans off holds no dmt_trace_mark and an empty
+    table; captured with spans on, a replay runs one mark a table entry
+    and the plain graph's kernels in their order, with work between each
+    BatchNorm's forward marks; its outputs and state are
+    bit-identical to the graph without marks."""
+    plain, want, k_plain = _graphed_run(which, False)
+    assert plain.marks == [] and "dmt_trace_mark" not in k_plain
+    marked, got, k_marked = _graphed_run(which, True)
+    table = marked.marks
+    assert table[0] == "dmt.step.begin" and table[-1] == "dmt.step.end"
+    assert table.count("dmt.step.begin") == STEPS
+    assert all(t.startswith("dmt.") and t.endswith((".begin", ".end"))
+               for t in table)
+    ends = {t[:-len(".end")]: i for i, t in enumerate(table)
+            if t.endswith(".end") and t.startswith("dmt.bn")}
+    begins = {t[:-len(".begin")]: i for i, t in enumerate(table)
+              if t.endswith(".begin") and t.startswith("dmt.bn")}
+    assert begins and begins.keys() == ends.keys()
+    assert all(begins[k] < ends[k] for k in begins)
+    assert k_marked.count("dmt_trace_mark") == len(table)
+    at = [i for i, n in enumerate(k_marked) if n == "dmt_trace_mark"]
+    for tag, i in begins.items():
+        if tag.endswith(".fwd"):
+            assert at[ends[tag]] - at[i] > 1, tag  # kernels between
+    # a graph's memcpy or memset node may run on a copy engine or as
+    # CUDA's own kernel (memcpy32_post, memset32), as its neighbours suit
+    def kind(n):
+        low = n.lower()
+        return next((k for k in ("memcpy", "memset") if k in low), n)
+
+    work = [kind(n) for n in k_marked if n != "dmt_trace_mark"]
+    plain_work = [kind(n) for n in k_plain]
+    assert len(work) == len(plain_work), (len(work), len(plain_work))
+    assert work == plain_work, next(
+        (i, a, b) for i, (a, b) in enumerate(zip(work, plain_work))
+        if a != b)
+    assert marked.replays == plain.replays == 1
+    assert marked.captures == plain.captures == 1
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert torch.equal(a, b), f"{which} tensor {i}"
+
+
 @pytest.mark.cuda
 def test_port_async_checkpoint_on_the_card(card, tmp_path):
     """The AsyncCheckpointer on card tensors: its file byte-identical to
