@@ -22,12 +22,21 @@ Phases, each fatal on failure:
    ``per_image_normalize`` at the CelebA FID path's (1000, 64, 64, 3) and
    the birds FID path's (1000, 128, 128, 3) in the decoder's layout and
    contiguous, at an odd shape, on a constant image and on an image holding
-   a NaN;
+   a NaN; the BatchNorm passes (``[check] batchnorm``) at every BatchNorm
+   shape of the full-width β-VAE-GAN step, channels-last as the step
+   gives them, forward and backward with the module's activation, against
+   their plain passes (tests/test_torch_port_batchnorm.py's tolerances)
+   and two launches bit-identical;
 3. time each kernel at its main-path shapes beside its bound, its plain
    version and, where one exists, one PyTorch library call computing the
    same function (for ``fused_linear`` two: ``torch.addmm`` on bf16 copies
    made beforehand, and with the casts from the port's float32 weight);
    ``per_image_normalize`` at both FID shapes, with its device-only time;
+   the BatchNorm passes (``[time] batchnorm``) at each step shape, forward
+   and backward, against the bytes the function has to move at 3.35 TB/s
+   (and the two-pass design's own), the library's ``F.batch_norm`` with
+   the activation in place and the ATen chain they replace, and summed
+   over one step's 42 forward and 38 backward calls;
    then train/scan.py's CUDA graphs (``[scan]``): for each of the six step
    kinds at full default width (the β-VAE-GAN in both freeze modes, the
    VAE, the DCGAN, the birds and MNIST families), from one copied state,
@@ -36,7 +45,8 @@ Phases, each fatal on failure:
    metric, parameter, running statistic, Adam moment and count of the
    graphed run within the eager runs' largest |Δ| of that tensor (or
    bit-identical where they are), fused_linear launches 4 × 21, 4 × 21,
-   4 × 5, 4 × 7, 0, 0;
+   4 × 5, 4 × 7, 0, 0, and the BatchNorms' 4 × 80, 4 × 75, 4 × 18, 4 × 32,
+   0, 0;
 4. FID set-up: reference statistics of 2048 synthetic images through the
    port's ``compute_dataset_statistics``; those images scored against their
    own statistics (|FID| ≈ 0); pool3 on the card against pool3 on the CPU;
@@ -48,7 +58,8 @@ Phases, each fatal on failure:
    without FID; the DCGAN 3 steps with FID over 1000 generated samples.
    Every loss and FID finite, and each kernel's launch count, set to 0 just
    before each run and read just after, equal to what the run's code path
-   launches (fused_linear's also by path). The trainer runs its first step
+   launches (fused_linear's also by path; the BatchNorms' a step and a
+   FID's, ``BN_STEP_LAUNCHES``). The trainer runs its first step
    eagerly and every later one as a replay of the step's CUDA graph, whose
    capture's launches each replay adds to the counts, and writes its
    checkpoints with the AsyncCheckpointer (how long ``save()`` blocked and
@@ -234,6 +245,22 @@ NORM_SHAPE = (N_SAMPLES, 64, 64, 3)
 NORM_LAUNCHES_PER_EPOCH = 2
 # the FID decode's one extra fused_linear launch: preprocess, 1000×128→16384
 FID_FUSED_LINEAR_LAUNCHES = 1
+# BatchNorm calls (ops/batchnorm.py launches: a call forward or backward is
+# one) of one training step, train/vaegan.py, train/vae.py, train/gan.py:
+# the encoder's five (bn1-3, mu_bn, lv_bn), the decoder's four (pre_bn,
+# dbn1-3), the discriminator's four. The β-VAE-GAN 'observed' runs the
+# encoder 2× forward and backward, the decoder 3× and 3×, the
+# discriminator 5× and 4×: 42 + 38; 'intent' differentiates the encoder
+# once less (75). The VAE: 9 + 9. The DCGAN: G 4 + 4, D 3 × 4 forward and
+# 3 × 4 backward. The families' FlaxBatchNorm keeps its torch passes: 0.
+BN_STEP_LAUNCHES = {"betavaegan observed": 80, "betavaegan intent": 75,
+                    "vae": 18, "gan": 32, "birds": 0, "mnist": 0}
+# ... and of sampling (train/common.py sampling: train-mode BatchNorm, no
+# gradient): the FID decode runs the decoder's four once; the evaluation
+# sweep adds the reconstruction's encoder and decoder (9) and the sample
+# grid's decoder (4)
+BN_FID_LAUNCHES = 4
+BN_SWEEP_LAUNCHES = BN_FID_LAUNCHES + 9 + 4
 # ... and on the birds FID path (train/loop.py run_family): 1000 decoded
 # 128×128 samples, twice per FID epoch as well
 BIRDS_IMG = 128
@@ -457,21 +484,40 @@ def check_fused_linear(fl, torch) -> dict:
     return worst
 
 
-def time_device_ms(fn, iters: int = 20) -> float:
+def time_device_ms(fn, iters: int = 20, tries: int = 4,
+                   label: str = "") -> float:
     """Device time per call: a spin kernel holds the card until all the
-    calls are queued, so the host's time per call does not show."""
+    calls are queued, so the host's time per call does not show. The spin
+    has to outlast the queuing, which takes longer when the host is busy:
+    where it did not, the spin is doubled and the calls timed again, up to
+    ``tries`` times; a call that waits for the device itself never lets
+    the spin outlast it, and the line says so."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(50_000_000)  # tens of ms at the card's clock
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    spin, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    cycles = 50_000_000  # tens of ms at the card's clock
+    for _ in range(tries):
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        spin_ms = spin.elapsed_time(start)
+        if spin_ms > queued_ms:
+            break
+        cycles *= 2
+    else:
+        say(f"[time] device-only time of {label or 'the next line'} "
+            f"includes the host's: queuing {iters} calls took "
+            f"{queued_ms:.1f} ms, the spin {spin_ms:.1f}")
     return start.elapsed_time(end) / iters
 
 
@@ -558,7 +604,10 @@ def ptxas_summary(log: str) -> str:
     (one entry per kernel name and count), and any wgmma serialisation."""
     names = ("fused_linear_stream_kernel", "fused_linear_splitk_reduce_kernel",
              "fused_linear_dot_kernel", "fused_linear_generic_kernel",
-             "per_image_normalize")
+             "per_image_normalize", "dmt_bn_reduce_rows",
+             "dmt_bn_reduce_grad_rows", "dmt_bn_reduce_finalize",
+             "dmt_bn_reduce_grad_finalize", "dmt_bn_elementwise_apply_rows",
+             "dmt_bn_elementwise_grad_rows")
     seen, name, spill = {}, None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -690,6 +739,203 @@ def time_per_image_normalize(pin, torch, card: str) -> list:
     return rows
 
 
+def batchnorm_tests():
+    """tests/test_torch_port_batchnorm.py as a top-level module (another
+    package named ``tests`` may be installed): its table of the step's
+    BatchNorm shapes, its inputs and its comparison."""
+    path = os.path.join(REPO, "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import test_torch_port_batchnorm as bnt
+
+    return bnt
+
+
+def check_batchnorm(bno, torch) -> dict:
+    """The BatchNorm kernels against their plain passes on the same card
+    tensors at every BatchNorm shape of the β-VAE-GAN step (batch 256,
+    bf16, train mode, the module's activation), channels-last as the step
+    gives them: y, dx, dγ, dβ and the running statistics within the test
+    file's tolerances (its docstring gives each reason), and two launches
+    bit-identical. Returns the largest reading over its tolerance of each
+    output."""
+    bnt = batchnorm_tests()
+    dev = torch.device("cuda")
+    worst: dict = {}
+    for i, (shape, act, _, _) in enumerate(bnt.STEP_SHAPES):
+        x = bnt._input(shape, dev, 10 + i, torch.bfloat16, True)
+        dy = bnt._input(shape, dev, 50 + i, torch.bfloat16, True)
+        state = bnt._params(shape[1], dev, i)
+        got = bnt._run(bno.batch_norm, x, dy, state, act)
+        again = bnt._run(bno.batch_norm, x, dy, state, act)
+        want = bnt._run(bno.batch_norm_plain, x, dy, state, act)
+        torch.cuda.synchronize()
+        same = [k for k in got if torch.equal(got[k], again[k])]
+        err = bnt.compare(got, want, x, state)
+        for k, v in err.items():
+            worst[k] = max(worst.get(k, 0), v)
+        say(f"[check] batchnorm {shape} {act}: error over tolerance "
+            + ", ".join(f"{k} {v:.3f}" for k, v in err.items()
+                        if k != "kink")
+            + f"; dx left out at the kink {err['kink']}; two launches "
+            f"bit-identical in {len(same)} of {len(got)} outputs")
+        if len(same) != len(got):
+            fail(f"[check] batchnorm {shape}: two launches differ in "
+                 f"{sorted(set(got) - set(same))}")
+        if max(v for k, v in err.items() if k != "kink") > 1 or \
+                err["kink"] > 1e-3 * x.numel():
+            fail(f"[check] batchnorm {shape} {act}: {err}")
+        del x, dy, got, again, want
+    return worst
+
+
+def aten_batchnorm(x, w, b, rm, rv, act: str):
+    """The ATen passes the BatchNorm kernels replace (models/layers.py
+    before them: a float32 copy, mean, square and mean, the clip, rsqrt,
+    the fold, the running statistics, a compute-dtype multiply and add),
+    then the activation as its own pass."""
+    import torch
+    import torch.nn.functional as F
+
+    axes = (0,) + tuple(range(2, x.dim()))
+    xf = x.float()
+    mean, mean2 = xf.mean(axes), xf.square().mean(axes)
+    n = x.numel() // x.shape[1]
+    var = torch.clamp(mean2 - mean.square(), min=0.0)
+    with torch.no_grad():
+        rm.copy_(0.9 * rm + 0.1 * mean)
+        rv.copy_(0.9 * rv + 0.1 * var * (n / (n - 1)))
+    inv = torch.rsqrt(var + 1e-5) * w
+    shift = b - mean * inv
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    y = x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+    return F.relu(y) if act == "relu" else F.leaky_relu(y, 0.2)
+
+
+def library_batchnorm(x, w, b, rm, rv, act: str):
+    """The library's one call each way: ``F.batch_norm`` in train mode
+    (cuDNN's or ATen's fused channels-last BatchNorm, a Welford variance)
+    and the activation in place, as ``nn.BatchNorm2d`` and
+    ``nn.ReLU(inplace=True)`` give them."""
+    import torch.nn.functional as F
+
+    y = F.batch_norm(x, rm, rv, w, b, training=True, momentum=0.1,
+                     eps=1e-5)
+    return F.relu(y, inplace=True) if act == "relu" else \
+        F.leaky_relu(y, 0.2, inplace=True)
+
+
+def time_batchnorm(bno, torch, card: str) -> dict:
+    """At each BatchNorm shape of the β-VAE-GAN step (channels-last bf16,
+    as the step gives them), forward alone and forward with backward: the
+    kernels' wall time a call (CUDA events, queued calls) and device-only
+    time, the plain passes', the library call's (``library_batchnorm``) and
+    the ATen chain's the kernels replace (with its separate activation).
+    Two bounds at 3.35 TB/s, the C-sized vectors left out: ``bound``, the
+    bytes the function has to move (forward x in and y out, backward x and
+    dy in and dx out), and ``two_pass_bound``, this design's own (x, and
+    dy, read twice). Then the sums over one step's calls (forward and
+    backward counts of the table)."""
+    bnt = batchnorm_tests()
+    dev = torch.device("cuda")
+    rows = []
+    for i, (shape, act, nf, nb) in enumerate(bnt.STEP_SHAPES):
+        x = bnt._input(shape, dev, 10 + i, torch.bfloat16, True)
+        dy = bnt._input(shape, dev, 50 + i, torch.bfloat16, True)
+        w, b, rm, rv = bnt._params(shape[1], dev, i)
+        w.requires_grad_(), b.requires_grad_()
+        xg = x.detach().clone().requires_grad_()
+
+        def fwd(fn):
+            with torch.no_grad():
+                return fn(x, w, b, rm, rv, act)
+
+        def both(fn):  # the gradients alone: nothing accumulated into .grad
+            torch.autograd.grad(fn(xg, w, b, rm, rv, act), (xg, w, b), dy)
+
+        def ours(xx, *a):
+            return bno.batch_norm(xx, *a[:4], train=True, activation=a[4])
+
+        def plain(xx, *a):
+            return bno.batch_norm_plain(xx, *a[:4], train=True,
+                                        activation=a[4])
+
+        timed = (("kernel", ours), ("library", library_batchnorm),
+                 ("aten", aten_batchnorm))
+        ms = {}
+        for name, fn in timed + (("plain", plain),):
+            ms[name + "_fwd"] = time_ms(lambda: fwd(fn))
+            ms[name + "_both"] = time_ms(lambda: both(fn))
+        for name, fn in timed:
+            label = f"batchnorm {name} {tuple(shape)}"
+            ms[name + "_fwd_device"] = time_device_ms(
+                lambda: fwd(fn), label=label + " forward")
+            ms[name + "_both_device"] = time_device_ms(
+                lambda: both(fn), label=label + " both")
+        nbytes = x.element_size() * x.numel()
+        r = {"shape": list(shape), "activation": act, "forward_calls": nf,
+             "backward_calls": nb, "forward_bytes": 2 * nbytes,
+             "backward_bytes": 3 * nbytes,
+             "forward_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+             "backward_bound_ms": 3 * nbytes / HBM_BYTES_PER_S * 1e3,
+             "forward_two_pass_bound_ms": 3 * nbytes / HBM_BYTES_PER_S * 1e3,
+             "backward_two_pass_bound_ms": 5 * nbytes / HBM_BYTES_PER_S
+             * 1e3, **ms}
+        for name in ("kernel", "plain", "library", "aten"):
+            r[name + "_bwd"] = ms[name + "_both"] - ms[name + "_fwd"]
+        for name, _ in timed:
+            r[name + "_bwd_device"] = (ms[name + "_both_device"]
+                                       - ms[name + "_fwd_device"])
+        rows.append(r)
+        say(f"[time] batchnorm {tuple(shape)} {act}: forward kernel "
+            f"{ms['kernel_fwd']:.4f} ms (device {ms['kernel_fwd_device']:.4f}"
+            f", bound {r['forward_bound_ms']:.4f}, "
+            f"{r['forward_bound_ms'] / ms['kernel_fwd_device'] * 100:.1f} %; "
+            f"two-pass bound {r['forward_two_pass_bound_ms']:.4f}), library "
+            f"{ms['library_fwd']:.4f} (device "
+            f"{ms['library_fwd_device']:.4f}), ATen chain "
+            f"{ms['aten_fwd']:.4f} (device {ms['aten_fwd_device']:.4f}), "
+            f"plain {ms['plain_fwd']:.4f}; backward kernel "
+            f"{r['kernel_bwd']:.4f} ms (device {r['kernel_bwd_device']:.4f}, "
+            f"bound {r['backward_bound_ms']:.4f}, "
+            f"{r['backward_bound_ms'] / r['kernel_bwd_device'] * 100:.1f} %; "
+            f"two-pass bound {r['backward_two_pass_bound_ms']:.4f}), library "
+            f"{r['library_bwd']:.4f} (device {r['library_bwd_device']:.4f}), "
+            f"ATen chain {r['aten_bwd']:.4f} (device "
+            f"{r['aten_bwd_device']:.4f}), plain {r['plain_bwd']:.4f}; "
+            f"card {card}")
+        del x, dy, xg
+
+    def total(fwd_key, bwd_key):
+        return sum(r[fwd_key] * r["forward_calls"]
+                   + r[bwd_key] * r["backward_calls"] for r in rows)
+
+    step = {"plain_ms": total("plain_fwd", "plain_bwd")}
+    for name, _ in timed:
+        step[name + "_ms"] = total(name + "_fwd", name + "_bwd")
+        step[name + "_device_ms"] = total(name + "_fwd_device",
+                                          name + "_bwd_device")
+    step["bound_ms"] = total("forward_bound_ms", "backward_bound_ms")
+    step["two_pass_bound_ms"] = total("forward_two_pass_bound_ms",
+                                      "backward_two_pass_bound_ms")
+    step["bound_share"] = step["bound_ms"] / step["kernel_device_ms"]
+    step["two_pass_bound_share"] = (step["two_pass_bound_ms"]
+                                    / step["kernel_device_ms"])
+    say(f"[time] batchnorm per betavaegan step "
+        f"({sum(r['forward_calls'] for r in rows)} forward and "
+        f"{sum(r['backward_calls'] for r in rows)} backward calls): kernels "
+        f"{step['kernel_ms']:.3f} ms, device only "
+        f"{step['kernel_device_ms']:.3f} ms, bound {step['bound_ms']:.3f} "
+        f"ms ({step['bound_share'] * 100:.1f} % of it; two-pass bound "
+        f"{step['two_pass_bound_ms']:.3f} ms, "
+        f"{step['two_pass_bound_share'] * 100:.1f} %), library "
+        f"{step['library_ms']:.3f} ms (device "
+        f"{step['library_device_ms']:.3f}), plain {step['plain_ms']:.3f} ms, "
+        f"ATen chain {step['aten_ms']:.3f} ms (device "
+        f"{step['aten_device_ms']:.3f}); card {card}")
+    return {"shapes": rows, "per_step": step}
+
+
 def fid_setup(torch) -> str:
     """Reference statistics of STATS_IMAGES synthetic images through the
     port's compute_dataset_statistics; the same images against them give
@@ -756,31 +1002,43 @@ RUN_LOSSES = {"betavaegan": ("Avg Eec Loss", "Avg Dis Loss"),
 def count_launches(fl, pin, run) -> tuple:
     """``run()`` with every kernel's count set to 0 just before and read
     just after; returns (its result, launches, fused_linear by path,
-    seconds)."""
+    seconds). The BatchNorm calls are counted by mode: ``batchnorm`` in
+    train mode, ``batchnorm_eval`` in eval mode."""
     import torch
 
-    fl.launches = pin.launches = 0
+    from disentangle_mlp_tpu_torch.ops import batchnorm as bno
+
+    fl.launches = pin.launches = bno.launches = 0
     fl.path_launches.clear()
+    bno.path_launches.clear()
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return (out, {"fused_linear": fl.launches,
-                  "per_image_normalize": pin.launches},
-            dict(fl.path_launches), wall)
+    launches = {"fused_linear": fl.launches,
+                "per_image_normalize": pin.launches,
+                "batchnorm": bno.path_launches["rows"],
+                "batchnorm_eval": bno.path_launches["eval"]}
+    if bno.launches != launches["batchnorm"] + launches["batchnorm_eval"]:
+        fail(f"batchnorm: {bno.launches} launches, by mode "
+             f"{dict(bno.path_launches)}")
+    return out, launches, dict(fl.path_launches), wall
 
 
-def check_launches(fl, torch, label, launches, by_path, shapes, fids) -> None:
+def check_launches(fl, torch, label, launches, by_path, shapes, fids,
+                   bn: int) -> None:
     """The launches of a run against what its code path makes: the
     fused_linear calls of ``shapes`` (and the FID decode's), by the path
-    ``plan`` gives each, and per_image_normalize twice for each of the
-    ``fids`` FIDs."""
+    ``plan`` gives each, per_image_normalize twice for each of the
+    ``fids`` FIDs, and ``bn`` train-mode BatchNorm calls (the FIDs' own
+    added here)."""
     fids = int(fids)
     if fids:
         shapes = shapes + [FID_DECODE_SHAPE[:-1]
                            + (FID_FUSED_LINEAR_LAUNCHES * fids,)]
     want = {"fused_linear": sum(s[-1] for s in shapes),
-            "per_image_normalize": NORM_LAUNCHES_PER_EPOCH * fids}
+            "per_image_normalize": NORM_LAUNCHES_PER_EPOCH * fids,
+            "batchnorm": bn + BN_FID_LAUNCHES * fids, "batchnorm_eval": 0}
     if launches != want:
         fail(f"{label}: kernel launches {launches}, expected {want}")
     want_paths = planned_paths(fl, torch, shapes)
@@ -839,8 +1097,10 @@ def train(fl, pin, model: str, mode: str, size: int, card: str,
     if not all(math.isfinite(v) for v in values):
         fail(f"train {model} {mode}: non-finite loss {out}")
     shapes = [s[:-1] + (s[-1] * steps,) for s in STEP_SHAPES[model]]
+    kind = f"betavaegan {mode}" if model == "betavaegan" else model
     check_launches(fl, torch, f"train {model} {mode}", launches, by_path,
-                   shapes, bool(stats_path))
+                   shapes, bool(stats_path),
+                   steps * BN_STEP_LAUNCHES[kind])
     notes = []
     if stats_path:
         fid = out["FID"]
@@ -917,7 +1177,7 @@ def evaluate(fl, pin, saved: dict, stats_path: str, card: str) -> tuple:
     out, launches, by_path, wall = count_launches(
         fl, pin, lambda: evaluate_main(argv))
     check_launches(fl, torch, "eval", launches, by_path, SWEEP_SHAPES[1:],
-                   True)
+                   True, BN_SWEEP_LAUNCHES - BN_FID_LAUNCHES)
     (rec,) = out["sweep"]
     fid, epoch = rec["FID"], rec["Epoch"]
     if not (isinstance(fid, float) and math.isfinite(fid)):
@@ -1336,7 +1596,8 @@ def train_folder(fl, pin, tree: str, fid_dir: str, card: str) -> tuple:
              f"{want}")
     shapes = [sh[:-1] + (sh[-1] * steps,) for sh in FUSED_LINEAR_SHAPES]
     check_launches(fl, torch, f"train {name}", launches, by_path, shapes,
-                   FOLDER_EPOCHS if fid_dir else 0)
+                   FOLDER_EPOCHS if fid_dir else 0,
+                   steps * BN_STEP_LAUNCHES["betavaegan observed"])
     fid_note = (f"FID per epoch against a directory of {FID_DIR_IMAGES} "
                 f"JPEGs {[round(v, 4) for v in fids]}" if fid_dir
                 else "no FID")
@@ -1433,7 +1694,8 @@ def train_family(fl, pin, label: str, flags: list, epochs: int,
              f"{out['step_metrics']}: losses must be finite floats and FIDs "
              f"{'finite floats' if fid else 'N/A'}")
     want = {"fused_linear": 0,
-            "per_image_normalize": NORM_LAUNCHES_PER_EPOCH * epochs * fid}
+            "per_image_normalize": NORM_LAUNCHES_PER_EPOCH * epochs * fid,
+            "batchnorm": 0, "batchnorm_eval": 0}
     if launches != want or by_path:
         fail(f"train {label}: kernel launches {launches} by path {by_path}, "
              f"expected {want}")
@@ -1631,7 +1893,8 @@ def bo_search(fl, pin, stats_path: str, card: str) -> tuple:
     steps = BO_ITERATIONS * BO_EPOCHS * BO_STEPS
     shapes = [s[:-1] + (s[-1] * steps,) for s in FUSED_LINEAR_SHAPES]
     check_launches(fl, torch, "bo search", launches, by_path, shapes,
-                   BO_ITERATIONS * BO_EPOCHS)
+                   BO_ITERATIONS * BO_EPOCHS,
+                   steps * BN_STEP_LAUNCHES["betavaegan observed"])
     say(f"[bo] search: {BO_ITERATIONS} evaluations of {BO_EPOCHS} epoch x "
         f"{BO_STEPS} steps at batch {BATCH}, bf16, full width, FID over "
         f"{N_SAMPLES} samples; cycles "
@@ -1726,7 +1989,7 @@ def reproduce_run(fl, pin, card: str) -> tuple:
     steps = REPRO_EPOCHS * REPRO_STEPS
     shapes = [s[:-1] + (s[-1] * steps,) for s in FUSED_LINEAR_SHAPES]
     check_launches(fl, torch, "reproduce", launches, by_path, shapes,
-                   REPRO_EPOCHS)
+                   REPRO_EPOCHS, steps * BN_STEP_LAUNCHES["betavaegan observed"])
     parts["statistics and set-up"] = wall - sum(parts.values())
     say(f"[reproduce] synthetic, beta 25 (the CLI's default), "
         f"{REPRO_EPOCHS} epochs x {REPRO_STEPS} steps at batch {BATCH}, "
@@ -2011,7 +2274,8 @@ def convert_resume(fl, pin, card: str) -> tuple:
     if not all(math.isfinite(v) for v in values):
         fail(f"convert: resumed run's losses {result}")
     shapes = [s[:-1] + (s[-1] * RESUME_STEPS,) for s in FUSED_LINEAR_SHAPES]
-    check_launches(fl, torch, "convert resume", launches, by_path, shapes, 0)
+    check_launches(fl, torch, "convert resume", launches, by_path, shapes, 0,
+                   RESUME_STEPS * BN_STEP_LAUNCHES["betavaegan observed"])
     say(f"[convert] reference .tar at full width ({t_tar:.2f} s to write) "
         f"-> {size / 1e9:.3f} GB checkpoint of epoch {raw['epoch']} in "
         f"{t_convert:.2f} s (template on the card, fresh Adam state); "
@@ -2074,8 +2338,9 @@ def scan_check(fl, pin, card: str) -> list:
     spread), then one K = SCAN_K replay of the captured graph. Every metric
     and every parameter, running statistic, Adam moment and count of the
     graphed run within the largest |Δ| between the two eager runs of that
-    tensor, or bit-identical where the eager runs are; fused_linear's
-    launches of the replay SCAN_K times a step's, by path as planned.
+    tensor, or bit-identical where the eager runs are; fused_linear's and
+    the BatchNorms' launches of the replay SCAN_K times a step's
+    (fused_linear's by path as planned).
     cuDNN runs deterministic algorithms here: with its default choice the
     float32 MNIST step differs from run to run (1e-3 of the loss), and a
     third run lies as often outside that spread as inside it, tensor by
@@ -2157,13 +2422,16 @@ def scan_kind(fl, pin, card: str, label: str, model: str,
         fail(f"[scan] {label}: {len(worse)} of {len(pairs)} tensors of "
              f"the graphed run outside the eager runs' spread, e.g. "
              f"(name, |graph - eager|, |eager - eager|) {worse[:4]}")
-    want = SCAN_K * KIND_LAUNCHES[label]
+    want = {"fused_linear": SCAN_K * KIND_LAUNCHES[label],
+            "per_image_normalize": 0,
+            "batchnorm": SCAN_K * BN_STEP_LAUNCHES[label],
+            "batchnorm_eval": 0}
     want_paths = {} if model in ("birds", "mnist") else {
         k: SCAN_K * v for k, v in planned_paths(
             fl, torch, STEP_SHAPES[model]).items()}
-    if launches["fused_linear"] != want or by_path != want_paths:
+    if launches != want or by_path != want_paths:
         fail(f"[scan] {label}: launches {launches} by path {by_path}, "
-             f"expected fused_linear {want} by path {want_paths}")
+             f"expected {want} by path {want_paths}")
     finite = all(bool(torch.isfinite(v).all()) for v in mg.values())
     if not finite:
         fail(f"[scan] {label}: non-finite metrics {mg}")
@@ -2172,8 +2440,9 @@ def scan_kind(fl, pin, card: str, label: str, model: str,
         f"running statistics, Adam moments and counts): largest |eager "
         f"- eager| {spread:.3e}, largest |graph - eager| {dist:.3e}, "
         f"bit-identical {identical[0]} eager-eager and {identical[1]} "
-        f"graph-eager; launches {json.dumps(launches)}, fused_linear by "
-        f"path {json.dumps(by_path)}; wall: {SCAN_K} eager steps "
+        f"graph-eager; launches of the replay {json.dumps(launches)}, "
+        f"fused_linear by path {json.dumps(by_path)}; wall: {SCAN_K} eager "
+        f"steps "
         f"{t_eager * 1e3:.1f} ms, warm-up and capture "
         f"{t_capture * 1e3:.1f} ms, one replay of {SCAN_K} steps "
         f"{t_replay * 1e3:.1f} ms; cuDNN deterministic; card {card}")
@@ -2417,8 +2686,8 @@ def ddp_nccl_w1(fl, pin, card: str) -> tuple:
     trainer steps (the first eager, then the one-step graph with the
     step's all-reduces captured), against the same steps without a mesh:
     every metric and state tensor bit-identical (cuDNN deterministic, as in
-    [scan]); fused_linear 21 launches a step. Returns the mesh run's
-    launches and fused_linear by path."""
+    [scan]); fused_linear 21 launches a step, the BatchNorms 80. Returns
+    the mesh run's launches and fused_linear by path."""
     from disentangle_mlp_tpu_torch.parallel import make_mesh, spawn
     from disentangle_mlp_tpu_torch.train.scan import state_tensors
     from disentangle_mlp_tpu_torch.train.vaegan import VAEGANExperiment
@@ -2445,10 +2714,12 @@ def ddp_nccl_w1(fl, pin, card: str) -> tuple:
     if differ:
         fail(f"[ddp] nccl w1: {len(differ)} metrics or state tensors differ "
              f"from the run without a mesh, e.g. {differ[:6]}")
-    want = DDP_W1_STEPS * LAUNCHES_PER_STEP
-    if launches["fused_linear"] != want:
-        fail(f"[ddp] nccl w1: fused_linear launches {launches}, expected "
-             f"{want}")
+    want = {"fused_linear": DDP_W1_STEPS * LAUNCHES_PER_STEP,
+            "per_image_normalize": 0,
+            "batchnorm": DDP_W1_STEPS * BN_STEP_LAUNCHES["betavaegan observed"],
+            "batchnorm_eval": 0}
+    if launches != want:
+        fail(f"[ddp] nccl w1: launches {launches}, expected {want}")
     say(f"[ddp] nccl w1: β-VAE-GAN observed at batch {BATCH}, bf16, full "
         f"width, on the group [cuda:0] over {backend}, world 1: "
         f"{DDP_W1_STEPS} steps (the first eager, then one-step graph "
@@ -2555,12 +2826,11 @@ def _ddp_w2_rank(mesh, ref_path: str) -> dict:
                            f"rank sets the port's float32 policy")
     torch.backends.cudnn.deterministic = True
     ref = torch.load(ref_path, map_location="cuda")
-    out = {"launches": {"fused_linear": 0, "per_image_normalize": 0},
-           "by_path": {}}
+    out = {"launches": {}, "by_path": {}}
 
     def add(launches, by_path):
         for k, v in launches.items():
-            out["launches"][k] += v
+            out["launches"][k] = out["launches"].get(k, 0) + v
         for k, v in by_path.items():
             out["by_path"][k] = out["by_path"].get(k, 0) + v
 
@@ -2575,8 +2845,7 @@ def _ddp_w2_rank(mesh, ref_path: str) -> dict:
         torch.cuda.synchronize()
         run, launches, by_path, wall = count_launches(
             fl, pin, lambda: _ddp_steps(exp, (x for x, _ in loader)))
-        if dtype == "bfloat16":  # the float32 control launches no kernel
-            add(launches, by_path)
+        add(launches, by_path)  # the float32 control: BatchNorm's alone
         digest = hashlib.sha256(b"".join(
             t.detach().cpu().numpy().tobytes()
             for t in state_tensors(exp))).hexdigest()
@@ -2704,10 +2973,14 @@ def ddp_gloo_w2(fl, pin, card: str) -> list:
                           f"error / bound {worst:.3f})")
         if not same:
             failed.append(f"{key}: the ranks' state differs")
-        want = DDP_W2_STEPS * LAUNCHES_PER_STEP if dtype == "bfloat16" else 0
-        if any(r["launches"]["fused_linear"] != want for r in res):
+        want = {"fused_linear": DDP_W2_STEPS * LAUNCHES_PER_STEP
+                if dtype == "bfloat16" else 0, "per_image_normalize": 0,
+                "batchnorm": DDP_W2_STEPS
+                * BN_STEP_LAUNCHES["betavaegan observed"],
+                "batchnorm_eval": 0}
+        if any(r["launches"] != want for r in res):
             failed.append(f"{key}: launches {[r['launches'] for r in res]}, "
-                          f"expected fused_linear {want} a rank")
+                          f"expected {want} a rank")
     fids = [r["fid"] for r in ranks]
     same = len({f["digest"] for f in fids}) == 1
     say(f"[ddp] fid: pool3 of {N_SAMPLES} full-width decodes over "
@@ -2766,6 +3039,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     try:
         from disentangle_mlp_tpu_torch.ops import _build
+        from disentangle_mlp_tpu_torch.ops import batchnorm as bno
         from disentangle_mlp_tpu_torch.ops import fused_linear as fl
         from disentangle_mlp_tpu_torch.ops import image_ops as pin
     except ImportError as e:
@@ -2785,7 +3059,7 @@ def main() -> None:
     # 2. build and check
     t0 = time.perf_counter()
     libs = _build.build_all(["fused_linear", "per_image_normalize",
-                             "nvjpeg_decode"])
+                             "nvjpeg_decode", "batchnorm"])
     say(f"[build] {', '.join(str(p.name) for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc a source, in parallel; "
         f"flags {' '.join(_build.NVCC_FLAGS)})")
@@ -2793,10 +3067,12 @@ def main() -> None:
         say(f"[build] ptxas {name}: {ptxas_summary(log) or 'no kernels'}")
     worst = check_fused_linear(fl, torch)
     norm_err = check_per_image_normalize(pin, torch)
+    bn_err = check_batchnorm(bno, torch)
 
     # 3. time
     rows = time_fused_linear(fl, torch, card)
     norm_rows = time_per_image_normalize(pin, torch, card)
+    bn_times = time_batchnorm(bno, torch, card)
 
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     try:
@@ -2946,6 +3222,31 @@ def main() -> None:
                      f"FID epoch (shapes: also the birds FID path's "
                      f"{BIRDS_NORM_SHAPE})",
         "shapes": norm_rows,
+    }, {
+        "name": "batchnorm", "route": "cuda",
+        "source": "disentangle_mlp_tpu_torch/csrc/batchnorm.cu",
+        "replaces": "no TPU kernel: the ATen passes of models/layers.py's "
+                    "BatchNorm and the activation after it",
+        "launches": launches["batchnorm"] + launches["batchnorm_eval"],
+        "launches_by_path": {"rows": launches["batchnorm"],
+                             "eval": launches["batchnorm_eval"]},
+        "error_over_tolerance": bn_err,
+        "ms": bn_times["per_step"]["kernel_ms"],
+        "device_ms": bn_times["per_step"]["kernel_device_ms"],
+        "bound_ms": bn_times["per_step"]["bound_ms"], "bound_by": "bytes",
+        "two_pass_bound_ms": bn_times["per_step"]["two_pass_bound_ms"],
+        "plain_ms": bn_times["per_step"]["plain_ms"],
+        "library_ms": bn_times["per_step"]["library_ms"],
+        "library_device_ms": bn_times["per_step"]["library_device_ms"],
+        "library_note": "F.batch_norm in train mode and the activation in "
+                        "place, one call each way",
+        "aten_ms": bn_times["per_step"]["aten_ms"],
+        "aten_device_ms": bn_times["per_step"]["aten_device_ms"],
+        "aten_note": "the ATen chain the kernels replace, forward and "
+                     "backward, with its separate activation",
+        "times_are": "sums over the BatchNorm calls of one β-VAE-GAN step "
+                     "(42 forward, 38 backward)",
+        "shapes": bn_times["shapes"],
     }]
     say(json.dumps({"kernels": kernels}))
     say(card)

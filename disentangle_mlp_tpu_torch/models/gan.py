@@ -2,7 +2,8 @@
 (disentangle_mlp_tpu/models/gan.py; reference models/model.py:331-416).
 
 ``DiscriminatorCeleba``: Conv(3→32, s1) → Conv(32→128, s2) →
-Conv(128→256, s2) → Conv(256→256, s2), each 5×5 pad 2 + BN + LeakyReLU(0.2);
+Conv(128→256, s2) → Conv(256→256, s2), each 5×5 pad 2 + BN + LeakyReLU(0.2)
+(fused into the BatchNorm's passes);
 flatten 8·8·256 in (H, W, C) order → Linear→2048 + LeakyReLU (the ``Dis_l``
 feature layer, float32 at the boundary) → Linear 2048→1. ``forward``
 returns (probability, features), or (logit, features) with
@@ -15,10 +16,8 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_linear import LEAKY_SLOPE
 from .layers import BatchNorm, Conv, Linear, flatten_hwc, nhwc_to_nchw
 from .vae import CelebaDecoder
 
@@ -56,14 +55,11 @@ class DiscriminatorCeleba(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """NHWC images → (probability or logit (B,), Dis_l features (B, F)),
         both float32."""
-        def lrelu(h):
-            return F.leaky_relu(h, LEAKY_SLOPE)
-
         h = nhwc_to_nchw(x)
-        h = lrelu(self.bn1(self.conv1(h), train))
-        h = lrelu(self.bn2(self.conv2(h), train))
-        h = lrelu(self.bn3(self.conv3(h), train))
-        h = lrelu(self.bn4(self.conv4(h), train))
+        h = self.bn1(self.conv1(h), train, activation="leaky_relu")
+        h = self.bn2(self.conv2(h), train, activation="leaky_relu")
+        h = self.bn3(self.conv3(h), train, activation="leaky_relu")
+        h = self.bn4(self.conv4(h), train, activation="leaky_relu")
         features = self.lth_features(flatten_hwc(h),
                                      activation="leaky_relu").float()
         logit = self.sigmoid_output(features).float().squeeze(-1)

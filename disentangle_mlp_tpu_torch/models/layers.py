@@ -35,8 +35,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.batchnorm import batch_norm
 from ..ops.fused_linear import LEAKY_SLOPE, fused_linear
-from ..parallel.mesh import all_reduce_sum, broadcast_
+from ..parallel.mesh import all_reduce_sum
 from ..utils import runtime
 
 DCGAN_STD = 0.02
@@ -198,25 +199,30 @@ class _MarkBackward(torch.autograd.Function):
 class BatchNorm(nn.Module):
     """BatchNorm with torch semantics (eps 1e-5, running-stat decay 0.9,
     E[x²]−E[x]² variance, Bessel-corrected ``running_var``) over every axis
-    but the channel axis 1: float32 statistics, compute-dtype output.
-    ``groups > 1`` emulates torch DataParallel: contiguous batch groups are
-    normalized with their own statistics and only group 0 updates the
-    running statistics (disentangle_mlp_tpu/models/layers.py _ManualBN).
+    but the channel axis 1: float32 statistics, compute-dtype output, and
+    the ``activation`` that follows it ("none", "relu" or "leaky_relu"),
+    computed in float32 before the one rounding. ``groups > 1`` emulates
+    torch DataParallel: contiguous batch groups are normalized with their
+    own statistics and only group 0 updates the running statistics
+    (disentangle_mlp_tpu/models/layers.py _ManualBN). Its passes are
+    ``ops/batchnorm.py``: the hand-written kernels on the card, their plain
+    version on the CPU.
 
     While the port's spans are on (utils/runtime.py), each call places
     device marks ``dmt.bn<k>#<call>.{fwd,bwd}.{begin,end}`` (k numbers the
     BatchNorms in the order they were built) around its forward and its
-    backward, so a profile of a CUDA graph's replay can tell the
-    BatchNorms' kernels from the rest; the values computed are the same.
+    backward, activation included, so a profile of a CUDA graph's replay
+    can tell the BatchNorms' kernels from the rest; the values computed are
+    the same.
 
     Under a mesh (``mesh``, set by :func:`set_mesh`) the statistics are
     those of the global batch, as the JAX package's sharded step computes
     them: the float32 mean and mean of squares are averaged over the ranks
-    in one differentiable all-reduce of the concatenated 2C vector, and the
-    Bessel factor counts the global batch. With ``groups`` the groups split
-    the global batch, so each rank holds ``groups / ranks`` whole groups and
-    no statistic crosses ranks; the running statistics of group 0, which
-    lies on rank 0, are broadcast from there."""
+    in one all-reduce of the 2C vector (the backward's two sums likewise),
+    and the Bessel factor counts the global batch. With ``groups`` the
+    groups split the global batch, so each rank holds ``groups / ranks``
+    whole groups and no statistic crosses ranks; the running statistics of
+    group 0, which lies on rank 0, are broadcast from there."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  groups: int = 1, momentum: float = 0.9,
@@ -229,6 +235,56 @@ class BatchNorm(nn.Module):
         self._trace_name, self._trace_calls = f"dmt.bn{next(_BN_IDS)}", 0
         self.weight = nn.Parameter(
             1.0 + _normal((features,), DCGAN_STD, generator))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = True,
+                activation: str = "none") -> torch.Tensor:
+        if not runtime.spans_on():
+            return self._normalize(x, train, activation)
+        self._trace_calls += 1
+        tag = f"{self._trace_name}#{self._trace_calls}"
+        x = _MarkBackward.apply(x, tag + ".bwd.end")
+        runtime.mark(tag + ".fwd.begin", x)
+        y = self._normalize(x, train, activation)
+        runtime.mark(tag + ".fwd.end", y)
+        return _MarkBackward.apply(y, tag + ".bwd.begin")
+
+    def _normalize(self, x: torch.Tensor, train: bool,
+                   activation: str = "none") -> torch.Tensor:
+        groups, mesh, group0_mesh = 1, self.mesh, None
+        if train and self.groups > 1:
+            groups, mesh, group0_mesh = self.groups, None, self.mesh
+            if group0_mesh is not None:
+                groups = local_groups(groups, group0_mesh)
+        return batch_norm(x, self.weight, self.bias, self.running_mean,
+                          self.running_var, train=train, groups=groups,
+                          momentum=self.momentum, epsilon=self.epsilon,
+                          activation=activation, out_dtype=self.dtype,
+                          mesh=mesh if train else None,
+                          group0_mesh=group0_mesh)
+
+
+class FlaxBatchNorm(BatchNorm):
+    """``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` as
+    the families use it, on NCHW: float32 batch statistics with the biased
+    variance E[x²] − E[x]² (clipped at 0), carried into ``running_var``
+    as it is (no Bessel correction); (x − μ)·(rsqrt(σ² + ε)·scale) + bias in
+    float32; the result cast to ``dtype`` (the families' ``.astype(dt)``).
+    Scale starts at 1 and bias at 0. Its flax leaves sit at
+    ``…/BatchNorm_k/{scale, bias}`` and ``{mean, var}`` (utils/params.py).
+    A :class:`BatchNorm`, so :func:`train.common.sampling` restores its
+    running statistics, and global-batch statistics under a mesh."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 momentum: float = 0.9, epsilon: float = 1e-5):
+        nn.Module.__init__(self)
+        self.dtype, self.groups = dtype, 1
+        self.momentum, self.epsilon = momentum, epsilon
+        self.mesh = None
+        self._trace_name, self._trace_calls = f"dmt.bn{next(_BN_IDS)}", 0
+        self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
@@ -257,79 +313,8 @@ class BatchNorm(nn.Module):
             n *= self.mesh.size
         return mean, torch.clamp(mean2 - mean.square(), min=0.0), n
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        if not runtime.spans_on():
-            return self._normalize(x, train)
-        self._trace_calls += 1
-        tag = f"{self._trace_name}#{self._trace_calls}"
-        x = _MarkBackward.apply(x, tag + ".bwd.end")
-        runtime.mark(tag + ".fwd.begin", x)
-        y = self._normalize(x, train)
-        runtime.mark(tag + ".fwd.end", y)
-        return _MarkBackward.apply(y, tag + ".bwd.begin")
-
-    def _normalize(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        dt = self.dtype
-        if train and self.groups > 1:
-            return self._grouped(x)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        if train:
-            mean, var, n = self._batch_stats(x)
-            self._update(mean.detach(), var.detach(), n)
-        else:
-            mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + self.epsilon) * self.weight
-        # (x − μ)·inv + β folded into x·inv + (β − μ·inv)
-        shift = self.bias - mean * inv
-        return x.to(dt) * inv.to(dt).view(shape) + shift.to(dt).view(shape)
-
-    def _grouped(self, x: torch.Tensor) -> torch.Tensor:
-        g, b = self.groups, x.shape[0]
-        if self.mesh is not None:
-            g = local_groups(g, self.mesh)
-        if b % g:
-            raise ValueError(f"bn_groups={g} must divide the batch ({b})")
-        xg = x.reshape((g, b // g) + tuple(x.shape[1:])).float()
-        axes = (1,) + tuple(range(3, xg.dim()))
-        gmean = xg.mean(axes)                                   # (g, C)
-        gmean2 = xg.square().mean(axes)
-        gvar = torch.clamp(gmean2 - gmean.square(), min=0.0)    # biased
-        first = torch.cat([gmean[0], gvar[0]]).detach()
-        if self.mesh is not None:
-            broadcast_([first], self.mesh, 0)
-        self._update(*first.chunk(2), xg[0].numel() // x.shape[1])
-        inv = torch.rsqrt(gvar + self.epsilon) * self.weight    # (g, C)
-        shift = self.bias - gmean * inv
-        shape = (g, 1, -1) + (1,) * (x.dim() - 2)
-        dt = self.dtype
-        y = xg.to(dt) * inv.to(dt).view(shape) + shift.to(dt).view(shape)
-        return y.reshape(x.shape)
-
-
-class FlaxBatchNorm(BatchNorm):
-    """``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` as
-    the families use it, on NCHW: float32 batch statistics with the biased
-    variance E[x²] − E[x]² (clipped at 0), carried into ``running_var``
-    as it is (no Bessel correction); (x − μ)·(rsqrt(σ² + ε)·scale) + bias in
-    float32; the result cast to ``dtype`` (the families' ``.astype(dt)``).
-    Scale starts at 1 and bias at 0. Its flax leaves sit at
-    ``…/BatchNorm_k/{scale, bias}`` and ``{mean, var}`` (utils/params.py).
-    A :class:`BatchNorm`, so :func:`train.common.sampling` restores its
-    running statistics, and global-batch statistics under a mesh."""
-
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
-                 momentum: float = 0.9, epsilon: float = 1e-5):
-        nn.Module.__init__(self)
-        self.dtype, self.groups = dtype, 1
-        self.momentum, self.epsilon = momentum, epsilon
-        self.mesh = None
-        self._trace_name, self._trace_calls = f"dmt.bn{next(_BN_IDS)}", 0
-        self.weight = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
-
-    def _normalize(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def _normalize(self, x: torch.Tensor, train: bool,
+                   activation: str = "none") -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
         xf = x.float()
         if train:
@@ -339,7 +324,7 @@ class FlaxBatchNorm(BatchNorm):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(self.dtype)
+        return activate(y.to(self.dtype), activation)
 
 
 def local_groups(groups: int, mesh) -> int:

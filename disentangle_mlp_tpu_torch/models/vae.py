@@ -65,12 +65,13 @@ class CelebaEncoder(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """NHWC images → (μ, logσ²), both float32."""
         h = nhwc_to_nchw(x)
-        h = torch.relu(self.bn1(self.conv1(h), train))
-        h = torch.relu(self.bn2(self.conv2(h), train))
-        h = torch.relu(self.bn3(self.conv3(h), train))
+        h = self.bn1(self.conv1(h), train, activation="relu")
+        h = self.bn2(self.conv2(h), train, activation="relu")
+        h = self.bn3(self.conv3(h), train, activation="relu")
         h = flatten_hwc(h)
-        mu = self.mu_fc2(torch.relu(self.mu_bn(self.mu_fc1(h), train)))
-        logvar = self.lv_fc2(torch.relu(self.lv_bn(self.lv_fc1(h), train)))
+        mu = self.mu_fc2(self.mu_bn(self.mu_fc1(h), train, activation="relu"))
+        logvar = self.lv_fc2(self.lv_bn(self.lv_fc1(h), train,
+                                        activation="relu"))
         return mu.float(), logvar.float()
 
     def forward_ref(self, x: torch.Tensor, train: bool = True,
@@ -119,11 +120,12 @@ class CelebaDecoder(nn.Module):
 
     def forward(self, z: torch.Tensor, train: bool = True) -> torch.Tensor:
         """(B, n_hidden) latents → NHWC images in the compute dtype."""
-        h = torch.relu(self.pre_bn(self.preprocess(z.to(self.dtype)), train))
+        h = self.pre_bn(self.preprocess(z.to(self.dtype)), train,
+                        activation="relu")
         h = nhwc_to_nchw(h.reshape((-1,) + self._reshape_to))
-        h = torch.relu(self.dbn1(self.deconv1(h), train))
-        h = torch.relu(self.dbn2(self.deconv2(h), train))
-        h = torch.relu(self.dbn3(self.deconv3(h), train))
+        h = self.dbn1(self.deconv1(h), train, activation="relu")
+        h = self.dbn2(self.deconv2(h), train, activation="relu")
+        h = self.dbn3(self.deconv3(h), train, activation="relu")
         return nchw_to_nhwc(torch.tanh(self.deconv4(h))).to(self.dtype)
 
 

@@ -1,0 +1,334 @@
+"""The port's BatchNorm passes (disentangle_mlp_tpu_torch/ops/batchnorm.py,
+csrc/batchnorm.cu) without JAX: the layout and plan the kernels take, the
+launch counts of a graph's capture and replays, the plain passes against
+autograd of the forward's graph in float64, and, on the card, the kernels
+against the plain passes at the β-VAE-GAN step's shapes. The JAX package
+holds the plain passes in tests/test_torch_port_models.py. This file
+imports no JAX, so its card tests run on the GPU machine:
+
+    python -m pytest tests/test_torch_port_batchnorm.py -m cuda -q
+
+Card tolerances, bf16 (both sides compute in float32 and round once, and
+round each product and sum alike; only the order of the float32 sums
+differs, by about 1e-6 of a statistic):
+- y and dx: one bf16 step (2^-7 of the value) where a statistic's last
+  bits move the rounding, plus 1e-4 of the largest |dx|, where dx's three
+  terms cancel; dx is not compared within 1e-4 of the activation's kink
+  (|pre-activation| < 1e-4, some 1e-4 of the elements; the two sides'
+  pre-activations differ by about 1e-6), where either slope may be taken.
+- dγ, dβ: 1e-3 of the largest, sums of a million terms that cancel.
+- the running statistics: 1e-5 relative, float32 rounding of the sums.
+"""
+
+import collections
+import math
+
+import pytest
+import torch
+
+from disentangle_mlp_tpu_torch.ops import batchnorm as bn
+
+# (shape, activation, forward / backward calls a β-VAE-GAN step): every
+# BatchNorm input of the step at batch 256, NCHW logical shapes
+STEP_SHAPES = [
+    ((256, 64, 32, 32), "relu", 2, 2),       # encoder bn1
+    ((256, 128, 16, 16), "relu", 2, 2),      # encoder bn2
+    ((256, 256, 8, 8), "relu", 2, 2),        # encoder bn3
+    ((256, 2048), "relu", 4, 4),             # encoder mu_bn, lv_bn
+    ((256, 16384), "relu", 3, 3),            # decoder pre_bn
+    ((256, 256, 16, 16), "relu", 3, 3),      # decoder dbn1
+    ((256, 128, 32, 32), "relu", 3, 3),      # decoder dbn2
+    ((256, 32, 64, 64), "relu", 3, 3),       # decoder dbn3
+    ((256, 32, 64, 64), "leaky_relu", 5, 4),   # discriminator bn1
+    ((256, 128, 32, 32), "leaky_relu", 5, 4),  # discriminator bn2
+    ((256, 256, 16, 16), "leaky_relu", 5, 4),  # discriminator bn3
+    ((256, 256, 8, 8), "leaky_relu", 5, 4),    # discriminator bn4
+]
+BF16_STEP = 2.0 ** -7
+DX_CANCEL = 1e-4
+KINK = 1e-4
+SUM_REL = 1e-3
+STATS_REL = 1e-5
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU; run with -m cuda on the GPU machine")
+
+
+def _params(c, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    w = 1.0 + 0.1 * torch.randn(c, generator=g)
+    b = 0.1 * torch.randn(c, generator=g)
+    rm = 0.1 * torch.randn(c, generator=g)
+    rv = 0.5 + torch.rand(c, generator=g)
+    return [t.to(device) for t in (w, b, rm, rv)]
+
+
+def _input(shape, device, seed, dtype, channels_last):
+    """x with a mean and a spread of its own in every channel."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+    per = (1, c) + (1,) * (len(shape) - 2)
+    loc = torch.randn(per, generator=g, device=device)
+    scale = 0.5 + torch.rand(per, generator=g, device=device)
+    x = (torch.randn(shape, generator=g, device=device) * scale + loc)
+    x = x.to(dtype)
+    if channels_last and x.dim() == 4:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return x
+
+
+# ---------------------------------------------------------------- layout --
+
+def test_layout_follows_the_strides():
+    """(rows, C) where the channels are contiguous; any other x is copied
+    to channels-last, which the kernels then take."""
+    nchw = torch.arange(4 * 6 * 3 * 5.0).reshape(4, 6, 3, 5)
+    assert bn.layout(nchw) is None
+    nhwc = nchw.contiguous(memory_format=torch.channels_last)
+    assert bn.layout(nhwc) == bn.Layout(60, 6)
+    assert bn.layout(torch.empty(4, 6)) == bn.Layout(4, 6)
+    assert bn.layout(torch.empty(4, 6, 1, 1)) == bn.Layout(4, 6)
+    assert bn.layout(torch.empty(4, 6, 7)) is None
+    assert bn.layout(torch.empty(6, 4).t()) is None
+    assert bn.layout(nchw[:, :, :, 1:]) is None
+    for x in (nchw, torch.randn(4, 6, 7), torch.randn(6, 4).t(),
+              nchw[:, :, :, 1:]):
+        copy = bn._channels_last(x)
+        assert bn.layout(copy) == bn.Layout(x.numel() // 6, 6)
+        assert torch.equal(copy, x)
+        assert torch.empty_like(copy).stride() == copy.stride()
+
+
+@pytest.mark.parametrize("shape", sorted({s[0] for s in STEP_SHAPES}))
+@pytest.mark.parametrize("groups", [1, 2])
+def test_plan_cuts_each_group_into_full_blocks(shape, groups):
+    """Each group's rows cut into at most as many blocks as fill the card,
+    each with UNROLL vectors a thread and MIN_ROWS rows at least."""
+    x = torch.empty(shape)
+    if x.dim() == 4:
+        x = x.contiguous(memory_format=torch.channels_last)
+    lay = bn.layout(x)
+    per = lay.rows // groups
+    for vec in (1, 8):
+        splits = bn.plan(lay, groups, vec)
+        cols = min(lay.channels // vec, bn.THREADS)
+        across = groups * math.ceil(lay.channels / vec / cols)
+        least = max(bn.MIN_ROWS, bn.THREADS // cols * bn.UNROLL)
+        assert 1 <= splits <= per
+        assert splits == 1 or per // splits >= least
+        assert splits == 1 or (splits - 1) * across < bn.TARGET_BLOCKS
+
+
+# ------------------------------------------------------- counts and errors --
+
+class _Stream:
+    cuda_stream = 12345
+
+
+def test_a_capture_records_and_each_replay_adds_its_launches():
+    before, paths = bn.launches, collections.Counter(bn.path_launches)
+    counts = collections.Counter()
+    with bn.capture_scope(_Stream(), counts):
+        bn._count("rows", _Stream.cuda_stream)
+        bn._count("rows", _Stream.cuda_stream)
+        bn._count("eval", _Stream.cuda_stream)
+        bn._count("eval", 999)  # another stream counts at once
+    assert counts == {"rows": 2, "eval": 1}
+    assert bn.launches == before + 1
+    bn.replayed(counts)
+    bn.replayed(counts)
+    assert bn.launches == before + 7
+    assert bn.path_launches - paths == {"rows": 4, "eval": 3}
+    assert _Stream.cuda_stream not in bn._recording
+
+
+def test_the_plain_version_counts_no_launch():
+    w, b, rm, rv = _params(6, "cpu", 0)
+    before = bn.launches
+    x = torch.randn(4, 6, 3, 3, requires_grad=True)
+    bn.batch_norm(x, w, b, rm, rv, train=True, activation="relu").sum() \
+        .backward()
+    bn.batch_norm(x, w, b, rm, rv, train=False)
+    assert bn.launches == before
+
+
+def test_wrong_arguments_raise():
+    w, b, rm, rv = _params(6, "cpu", 0)
+    x = torch.randn(6, 6)
+    with pytest.raises(ValueError, match="activation"):
+        bn.batch_norm(x, w, b, rm, rv, train=True, activation="tanh")
+    with pytest.raises(ValueError, match="must divide the batch"):
+        bn.batch_norm(x, w, b, rm, rv, train=True, groups=4)
+    with pytest.raises(ValueError, match="group0_mesh"):
+        bn.batch_norm(x, w, b, rm, rv, train=True, groups=2, mesh=object())
+    with pytest.raises(ValueError, match="float32"):
+        bn.batch_norm(x, w.double(), b, rm, rv, train=True)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bn.batch_norm(x, w, b, rm, rv, train=True, out_dtype=torch.float16)
+
+
+# ------------------------------------------ plain passes against autograd --
+
+def _graph(x, w, b, rm, rv, train, groups, activation):
+    """The forward's graph in float64 torch ops, differentiated by
+    autograd: E[x²]−E[x]² variance clipped at 0, rsqrt·γ folded into a
+    scale and shift, then the activation; running statistics updated."""
+    n, c = x.shape[:2]
+    xg = x.reshape(groups, n // groups, c, -1)
+    if train:
+        mean = xg.mean((1, 3))
+        var = torch.clamp(xg.square().mean((1, 3)) - mean.square(), min=0)
+        m = xg[0].numel() // c
+        with torch.no_grad():
+            rm.copy_(0.9 * rm + 0.1 * mean[0])
+            rv.copy_(0.9 * rv + 0.1 * var[0] * m / (m - 1))
+    else:
+        mean, var = rm[None], rv[None]
+    inv = torch.rsqrt(var + 1e-5) * w
+    shift = b - mean * inv
+    z = xg * inv[:, None, :, None] + shift[:, None, :, None]
+    if activation == "relu":
+        z = torch.relu(z)
+    elif activation == "leaky_relu":
+        z = torch.nn.functional.leaky_relu(z, 0.2)
+    return z.reshape(x.shape)
+
+
+@pytest.mark.parametrize("activation", ["none", "relu", "leaky_relu"])
+@pytest.mark.parametrize("mode", ["train", "groups2", "eval"])
+@pytest.mark.parametrize("shape", [(8, 5), (8, 5, 3, 4)])
+def test_plain_passes_match_autograd_of_the_graph(shape, mode, activation):
+    groups, train = (2 if mode == "groups2" else 1), mode != "eval"
+    w, b, rm, rv = _params(shape[1], "cpu", 1)
+    x = _input(shape, "cpu", 2, torch.float32, len(shape) == 4)
+    dy = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+    want_state = [t.double() for t in (w, b, rm, rv)]
+    for t in want_state[:2]:
+        t.requires_grad_()
+    xd = x.double().requires_grad_()
+    y_want = _graph(xd, *want_state, train, groups, activation)
+    y_want.backward(dy.double())
+
+    w.requires_grad_(), b.requires_grad_()
+    xt = x.clone().requires_grad_()
+    y = bn.batch_norm(xt, w, b, rm, rv, train=train, groups=groups,
+                      activation=activation)
+    y.backward(dy)
+    for name, got, want in (("y", y, y_want), ("dx", xt.grad, xd.grad),
+                            ("dγ", w.grad, want_state[0].grad),
+                            ("dβ", b.grad, want_state[1].grad),
+                            ("mean", rm, want_state[2]),
+                            ("var", rv, want_state[3])):
+        torch.testing.assert_close(got.double(), want.detach(), rtol=1e-5,
+                                   atol=1e-5, msg=name)
+
+
+# ------------------------------------------------------------- the card --
+
+def _run(fn, x, dy, state, activation, train=True, groups=1):
+    w, b, rm, rv = (t.clone() for t in state)
+    w.requires_grad_(), b.requires_grad_()
+    xt = x.detach().clone().requires_grad_()
+    y = fn(xt, w, b, rm, rv, train=train, groups=groups,
+           activation=activation)
+    y.backward(dy)
+    return {"y": y.detach(), "dx": xt.grad, "dγ": w.grad, "dβ": b.grad,
+            "mean": rm, "var": rv}
+
+
+def _kink(x, state, train, groups):
+    """|pre-activation| in float64, for the slope's ambiguous elements."""
+    w, b, rm, rv = (t.double() for t in state)
+    xd = x.double()
+    n, c = x.shape[:2]
+    xg = xd.reshape(groups, n // groups, c, -1)
+    if train:
+        mean = xg.mean((1, 3))
+        var = xg.var((1, 3), unbiased=False)
+    else:
+        mean, var = rm[None], rv[None]
+    inv = torch.rsqrt(var + 1e-5) * w
+    z = (xg - mean[:, None, :, None]) * inv[:, None, :, None] \
+        + b[None, None, :, None]
+    return z.abs().reshape(x.shape)
+
+
+def compare(got, want, x, state, train=True, groups=1):
+    """The largest error of each output over its tolerance (≤ 1 passes),
+    and the dx elements left out at the kink."""
+    out = {}
+    near = _kink(x, state, train, groups) < KINK
+    for key in ("y", "dx"):
+        g, w = got[key].float(), want[key].float()
+        tol = BF16_STEP * w.abs() + (DX_CANCEL * w.abs().max()
+                                     if key == "dx" else 1e-6)
+        if got[key].dtype == torch.float32:
+            tol = 1e-5 * (w.abs() + w.abs().max())
+        over = (g - w).abs() / tol
+        if key == "dx":
+            over = torch.where(near, 0.0, over)
+        out[key] = over.max().item()
+    for key in ("dγ", "dβ"):
+        d = (got[key] - want[key]).abs()
+        out[key] = (d / (SUM_REL * (want[key].abs() + want[key].abs().max()))
+                    ).max().item()
+    for key in ("mean", "var"):
+        d = (got[key] - want[key]).abs()
+        out[key] = (d / (STATS_REL * want[key].abs() + 1e-7)).max().item()
+    out["kink"] = int(near.sum())
+    return out
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_at_the_step_shapes(card):
+    """Every BatchNorm shape of the β-VAE-GAN step, bf16, train mode, its
+    own activation, forward and backward, channels-last as the step gives
+    them: the kernels against the plain passes on the same card tensors,
+    and two launches bit-identical."""
+    dev = torch.device("cuda")
+    seen = set()
+    for i, (shape, activation, _, _) in enumerate(STEP_SHAPES):
+        if (shape, activation) in seen:
+            continue
+        seen.add((shape, activation))
+        x = _input(shape, dev, 10 + i, torch.bfloat16, True)
+        dy = _input(shape, dev, 50 + i, torch.bfloat16, True)
+        state = _params(shape[1], dev, i)
+        before = bn.launches
+        got = _run(bn.batch_norm, x, dy, state, activation)
+        assert bn.launches == before + 2
+        again = _run(bn.batch_norm, x, dy, state, activation)
+        want = _run(bn.batch_norm_plain, x, dy, state, activation)
+        torch.cuda.synchronize()
+        for key in got:
+            assert torch.equal(got[key], again[key]), (shape, key)
+        assert got["y"].stride() == x.stride()
+        err = compare(got, want, x, state)
+        assert err["kink"] <= 1e-3 * x.numel(), (shape, err)
+        assert max(v for k, v in err.items() if k != "kink") <= 1, \
+            (shape, activation, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["groups2", "eval", "float32", "odd"])
+def test_kernels_match_plain_off_the_step(card, case):
+    """Grouped statistics, eval mode, float32, and a shape the 16-byte
+    accesses cannot take (V = 1); channels-last, and contiguous NCHW, which
+    the kernels take as a channels-last copy."""
+    dev = torch.device("cuda")
+    shape = (10, 6, 5, 7) if case == "odd" else (64, 32, 16, 16)
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    groups, train = (2 if case == "groups2" else 1), case != "eval"
+    for channels_last in (True, False):
+        x = _input(shape, dev, 7, dtype, channels_last)
+        dy = _input(shape, dev, 8, dtype, channels_last)
+        state = _params(shape[1], dev, 9)
+        kw = dict(train=train, groups=groups)
+        got = _run(bn.batch_norm, x, dy, state, "leaky_relu", **kw)
+        want = _run(bn.batch_norm_plain, x, dy, state, "leaky_relu", **kw)
+        err = compare(got, want, x, state, train, groups)
+        assert max(v for k, v in err.items() if k != "kink") <= 1, \
+            (case, channels_last, err)

@@ -204,6 +204,77 @@ def test_port_batchnorm_matches_flax(rank, groups):
                                np.asarray(want_eval), **LAYER_TOL)
 
 
+# jax.nn.leaky_relu's formula, unjitted: a jit would compile once a shape
+JAX_ACTIVATIONS = {"none": lambda h: h, "relu": jax.nn.relu,
+                   "leaky_relu": lambda h: jnp.where(h >= 0, h, 0.2 * h)}
+# bf16: the port computes in float32 and rounds y and dx once, so it is held
+# against flax's float32 vjp on the same bf16 inputs: one rounding (2^-9 of
+# the value) apart, plus float32's differences where the terms cancel.
+# (flax's own bf16 module rounds x·inv and the shift one at a time: with two
+# rows a group its output is 5 % of the largest value away from either.)
+BF16_ROUNDING = 2.0 ** -8
+
+
+@pytest.mark.parametrize("activation", sorted(JAX_ACTIVATIONS))
+@pytest.mark.parametrize("mode", ["train", "groups2", "eval"])
+@pytest.mark.parametrize("rank", [2, 4])
+def test_port_batchnorm_activation_vjp_matches_flax(rank, mode, activation):
+    """The port's BatchNorm with its fused activation, float32 and bf16,
+    against ``jax.vjp`` of flax's float32 BatchNorm followed by the
+    activation, on the same inputs (rounded to bf16, which both dtypes
+    hold exactly): the output, dx, dγ and dβ for one cotangent, and the
+    running statistics. The port's backward is its explicit formula
+    (ops/batchnorm.py), flax's the autodiff of its E[x²]−E[x]² graph."""
+    c, groups, train = 6, 2 if mode == "groups2" else 1, mode != "eval"
+    shape = (4, c) if rank == 2 else (4, 3, 5, c)  # NHWC on the JAX side
+
+    def bf16(a):
+        return np.asarray(jnp.asarray(a).astype(jnp.bfloat16)
+                          .astype(jnp.float32))
+
+    x, dy = bf16(_x(shape, seed=21, lo=-2.0, hi=3.0)), bf16(_x(shape, 22))
+    jmod = jl.BatchNorm(groups=groups)
+    p, s = _flax_init(jmod, x)
+    p, s = _perturb(p, 23), _positive_vars(_perturb(s, 24))
+
+    def f(xv, params):
+        y, mut = jmod.apply({"params": params, "batch_stats": s}, xv,
+                            use_running_average=not train,
+                            mutable=["batch_stats"])
+        return JAX_ACTIVATIONS[activation](y), mut
+
+    y, vjp, mut = jax.vjp(f, jnp.asarray(x), p, has_aux=True)
+    jdx, jdp = vjp(jnp.asarray(dy))
+    new = to_numpy_tree(mut["batch_stats"])["bn"]
+    for tdt in (torch.float32, torch.bfloat16):
+        def nchw(a):
+            t = torch.from_numpy(a.copy())
+            return (t if rank == 2 else t.permute(0, 3, 1, 2)).to(tdt)
+
+        def back(t):
+            t = t if rank == 2 else t.permute(0, 2, 3, 1)
+            return t.detach().float().numpy()
+
+        tmod = tl.BatchNorm(c, groups=groups, dtype=tdt)
+        from_jax(tmod, p, s)
+        xt = nchw(x).detach().requires_grad_()
+        yt = tmod(xt, train=train, activation=activation)
+        assert yt.dtype == tdt
+        yt.backward(nchw(dy))
+        pairs = [("y", back(yt), y), ("dx", back(xt.grad), jdx),
+                 ("dscale", tmod.weight.grad.numpy(), jdp["bn"]["scale"]),
+                 ("dbias", tmod.bias.grad.numpy(), jdp["bn"]["bias"]),
+                 ("mean", tmod.running_mean.numpy(), new["mean"]),
+                 ("var", tmod.running_var.numpy(), new["var"])]
+        for name, got, want in pairs:
+            want = np.asarray(want, np.float32)
+            rounded = tdt == torch.bfloat16 and name in ("y", "dx")
+            np.testing.assert_allclose(
+                got, want, rtol=BF16_ROUNDING if rounded else 1e-4,
+                atol=1e-5 * max(1.0, np.abs(want).max()),
+                err_msg=f"{name} {tdt}")
+
+
 # ---------------------------------------------------------------- losses --
 
 # no p of exactly 0.5: there JAX's min/max split the gradient of a tie in
