@@ -24,9 +24,13 @@ Phases, each fatal on failure:
    contiguous, at an odd shape, on a constant image and on an image holding
    a NaN; the BatchNorm passes (``[check] batchnorm``) at every BatchNorm
    shape of the full-width β-VAE-GAN step, channels-last as the step
-   gives them, forward and backward with the module's activation, against
-   their plain passes (tests/test_torch_port_batchnorm.py's tolerances)
-   and two launches bit-identical;
+   gives them, forward and backward with the module's activation, and at
+   every BatchNorm shape and activation of NVAE's step (the plain
+   reference's table, h100_bench/reference/nvae.py ``batchnorm_calls``),
+   against their plain passes (tests/test_torch_port_batchnorm.py's
+   tolerances) and two launches bit-identical; ``[check] fused_linear``
+   also at NVAE's squeeze-excitation shapes (the reference's
+   ``fused_linear_launches``, ReLU after the first layer);
 3. time each kernel at its main-path shapes beside its bound, its plain
    version and, where one exists, one PyTorch library call computing the
    same function (for ``fused_linear`` two: ``torch.addmm`` on bf16 copies
@@ -55,11 +59,18 @@ Phases, each fatal on failure:
    mode 'observed' with FID over 1000 decoded samples (and their PNG
    files), then 2 steps in 'intent' without FID, saving its checkpoint
    (the JAX package's format; the save timed); the plain VAE 2 steps
-   without FID; the DCGAN 3 steps with FID over 1000 generated samples.
+   without FID; the DCGAN 3 steps with FID over 1000 generated samples;
+   first of all, while the card's memory is free, NVAE at its published
+   widths and batch 128 (``--model nvae``, h100_bench/configs/
+   nvae_celeba64.json) 3 steps without FID, its launches a step those of
+   the reference's tables: a BatchNorm call each way for each of its
+   BatchNorms, the Swish ones counted apart, and two ``fused_linear``
+   calls for each cell's squeeze-excitation.
    Every loss and FID finite, and each kernel's launch count, set to 0 just
    before each run and read just after, equal to what the run's code path
    launches (fused_linear's also by path; the BatchNorms' a step and a
-   FID's, ``BN_STEP_LAUNCHES``). The trainer runs its first step
+   FID's, ``BN_STEP_LAUNCHES``, and the Swish calls among them,
+   ``BN_SWISH_LAUNCHES``). The trainer runs its first step
    eagerly and every later one as a replay of the step's CUDA graph, whose
    capture's launches each replay adds to the counts, and writes its
    checkpoints with the AsyncCheckpointer (how long ``save()`` blocked and
@@ -255,6 +266,16 @@ FID_FUSED_LINEAR_LAUNCHES = 1
 # 3 × 4 backward. The families' FlaxBatchNorm keeps its torch passes: 0.
 BN_STEP_LAUNCHES = {"betavaegan observed": 80, "betavaegan intent": 75,
                     "vae": 18, "gan": 32, "birds": 0, "mnist": 0}
+# ... of which run with the Swish (ops/batchnorm.py path_launches["swish"]):
+# none of these models' BatchNorms (NVAE's BatchNorm-Swish has it, see
+# nvae_step_launches); the evaluation, FID and data-parallel runs are held
+# to 0 as well
+BN_SWISH_LAUNCHES = {kind: 0 for kind in BN_STEP_LAUNCHES}
+# NVAE's training run: the published global batch, and its steps (the first
+# eager, the others graph replays)
+NVAE_CONFIG = os.path.join(REPO, "h100_bench", "configs",
+                           "nvae_celeba64.json")
+NVAE_STEPS = 3
 # ... and of sampling (train/common.py sampling: train-mode BatchNorm, no
 # gradient): the FID decode runs the decoder's four once; the evaluation
 # sweep adds the reconstruction's encoder and decoder (9) and the sample
@@ -475,6 +496,14 @@ def check_fused_linear(fl, torch) -> dict:
             fwd(label, x, w.t(), b, act, out, identity=True)
         if per_step:  # the decode and the sweep run without gradients
             grad(label, x, w, b, act, torch.bfloat16)
+        del x, w, b
+    # NVAE's squeeze-excitation, every shape of its step
+    for role, m, k, n, act, xdt, _ in nvae_linear_shapes():
+        x, w, b = inputs(m, k, n, getattr(torch, xdt))
+        label = f"{role} {m}x{k}x{n}"
+        for out in (torch.bfloat16, torch.float32):
+            fwd(label, x, w.t(), b, act, out, identity=True)
+        grad(label, x, w, b, act, torch.bfloat16)
         del x, w, b
     for label, m, k, n, act, xdt in FUSED_LINEAR_EDGES:
         x, w, b = inputs(m, k, n, getattr(torch, xdt))
@@ -751,18 +780,59 @@ def batchnorm_tests():
     return bnt
 
 
+def nvae_reference() -> tuple:
+    """(h100_bench/reference/nvae.py, the nvae_celeba64 configuration): the
+    plain reference's tables of NVAE's BatchNorm and dense calls."""
+    path = os.path.join(REPO, "h100_bench")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    from reference import nvae
+
+    with open(NVAE_CONFIG) as f:
+        return nvae, json.load(f)
+
+
+def nvae_batchnorm_shapes() -> list:
+    """((B, C, H, W), activation) of each distinct BatchNorm call of NVAE's
+    step at batch B."""
+    ref, c = nvae_reference()
+    b = c["batch_size_train"]
+    return sorted({((b, l["features"], l["hw"], l["hw"]), l["act"])
+                   for l in ref.layers(c) if l["kind"] == "bn"})
+
+
+def nvae_linear_shapes() -> list:
+    """(role, M, K, N, activation, x dtype, calls a step) of NVAE's dense
+    calls, each cell's squeeze-excitation (models/nvae.py SE: ReLU after
+    fc1, none after fc2, a bf16 mean of the pixels in), as planned_paths
+    and check_fused_linear take them."""
+    ref, c = nvae_reference()
+    b, calls = c["batch_size_train"], {}
+    for l in ref.layers(c):
+        if l["kind"] != "linear" or l.get("derived"):
+            continue
+        role = l["name"].rsplit(".", 1)[1]
+        key = (f"nvae se.{role}", b, l["fin"], l["fout"],
+               "relu" if role == "fc1" else "none", "bfloat16")
+        calls[key] = calls.get(key, 0) + 1
+    return [k + (n,) for k, n in sorted(calls.items())]
+
+
 def check_batchnorm(bno, torch) -> dict:
     """The BatchNorm kernels against their plain passes on the same card
     tensors at every BatchNorm shape of the β-VAE-GAN step (batch 256,
-    bf16, train mode, the module's activation), channels-last as the step
-    gives them: y, dx, dγ, dβ and the running statistics within the test
+    bf16, train mode, the module's activation) and at every shape and
+    activation of NVAE's step (batch 128), channels-last as the steps
+    give them: y, dx, dγ, dβ and the running statistics within the test
     file's tolerances (its docstring gives each reason), and two launches
     bit-identical. Returns the largest reading over its tolerance of each
     output."""
     bnt = batchnorm_tests()
     dev = torch.device("cuda")
     worst: dict = {}
-    for i, (shape, act, _, _) in enumerate(bnt.STEP_SHAPES):
+    cases = [(s, a) for s, a, _, _ in bnt.STEP_SHAPES] + \
+        nvae_batchnorm_shapes()
+    for i, (shape, act) in enumerate(cases):
         x = bnt._input(shape, dev, 10 + i, torch.bfloat16, True)
         dy = bnt._input(shape, dev, 50 + i, torch.bfloat16, True)
         state = bnt._params(shape[1], dev, i)
@@ -1018,7 +1088,8 @@ def count_launches(fl, pin, run) -> tuple:
     launches = {"fused_linear": fl.launches,
                 "per_image_normalize": pin.launches,
                 "batchnorm": bno.path_launches["rows"],
-                "batchnorm_eval": bno.path_launches["eval"]}
+                "batchnorm_eval": bno.path_launches["eval"],
+                "batchnorm_swish": bno.path_launches["swish"]}
     if bno.launches != launches["batchnorm"] + launches["batchnorm_eval"]:
         fail(f"batchnorm: {bno.launches} launches, by mode "
              f"{dict(bno.path_launches)}")
@@ -1038,7 +1109,8 @@ def check_launches(fl, torch, label, launches, by_path, shapes, fids,
                            + (FID_FUSED_LINEAR_LAUNCHES * fids,)]
     want = {"fused_linear": sum(s[-1] for s in shapes),
             "per_image_normalize": NORM_LAUNCHES_PER_EPOCH * fids,
-            "batchnorm": bn + BN_FID_LAUNCHES * fids, "batchnorm_eval": 0}
+            "batchnorm": bn + BN_FID_LAUNCHES * fids, "batchnorm_eval": 0,
+            "batchnorm_swish": 0}
     if launches != want:
         fail(f"{label}: kernel launches {launches}, expected {want}")
     want_paths = planned_paths(fl, torch, shapes)
@@ -1137,6 +1209,70 @@ def train(fl, pin, model: str, mode: str, size: int, card: str,
         f"by path {json.dumps(by_path)}; last step {json.dumps(metrics)}; "
         f"card {card}")
     return launches, by_path, saved
+
+
+def nvae_step_launches() -> dict:
+    """Kernel launches of one NVAE training step, from the plain
+    reference's tables: each BatchNorm call once forward and once
+    backward, the Swish ones also under ``batchnorm_swish``, and each
+    squeeze-excitation's two ``fused_linear`` calls (forward; their
+    backward is not the kernel)."""
+    ref, c = nvae_reference()
+    bn = ref.batchnorm_calls(c)
+    return {"fused_linear": len(ref.fused_linear_launches(c)),
+            "per_image_normalize": 0, "batchnorm": 2 * len(bn),
+            "batchnorm_eval": 0,
+            "batchnorm_swish": 2 * sum(a == "swish" for _, _, a in bn)}
+
+
+def train_nvae(fl, pin, card: str) -> tuple:
+    """NVAE at its published widths and batch (h100_bench/configs/
+    nvae_celeba64.json) through the trainer CLI, ``NVAE_STEPS`` steps
+    without FID: losses finite, and the launches equal to the reference's
+    tables a step, fused_linear's also by the path ``plan`` gives each.
+    Returns the launches and fused_linear's by path."""
+    import gc
+
+    from disentangle_mlp_tpu_torch.cli.train import main as train_main
+    import torch
+
+    _, c = nvae_reference()
+    batch = c["batch_size_train"]
+    argv = ["--model", "nvae", "--name", "smoke_nvae", "--device", "cuda",
+            "--epochs", "1", "--batch_size_train", str(batch),
+            "--dtype", c["dtype"], "--lr", str(c["lr"]),
+            "--synthetic_data", "True",
+            "--synthetic_train_size", str(NVAE_STEPS * batch),
+            "--checkpoint_every", "0", "--calc_fid", "False",
+            "--save_path", os.path.join(RUN_DIR, "%"),
+            "--log_path", os.path.join(RUN_DIR, "%", "log")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    out, launches, by_path, wall = count_launches(
+        fl, pin, lambda: train_main(argv))
+    values = [out[k] for k in ("Avg Loss", "Avg Recon Loss", "Avg KL")] + \
+        list(out["step_metrics"].values())
+    if not all(math.isfinite(v) for v in values):
+        fail(f"train nvae: non-finite loss {out}")
+    want = {k: NVAE_STEPS * v for k, v in nvae_step_launches().items()}
+    if launches != want:
+        fail(f"train nvae: kernel launches {launches}, expected {want}")
+    shapes = [s[:-1] + (s[-1] * NVAE_STEPS,) for s in nvae_linear_shapes()]
+    want_paths = planned_paths(fl, torch, shapes)
+    if by_path != want_paths:
+        fail(f"train nvae: fused_linear launches by path {by_path}, "
+             f"expected {want_paths} from plan")
+    rate = out["images_per_sec"]
+    say(f"[train] nvae: {NVAE_STEPS} steps at batch {batch}, "
+        f"{c['dtype']}, published widths; {rate:.1f} img/s, "
+        f"{batch / rate * 1e3:.2f} ms/step (steps 2..{NVAE_STEPS}); wall "
+        f"{wall:.1f} s incl. init; no FID; {held / 1e9:.2f} GB held before "
+        f"it, peak {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
+        f"reserved; launches {json.dumps(launches)} ({NVAE_STEPS} × the "
+        f"reference's step), fused_linear by path {json.dumps(by_path)}; "
+        f"last step {json.dumps(out['step_metrics'])}; card {card}")
+    return launches, by_path
 
 
 def _tree_map(tree, fn):
@@ -1695,7 +1831,7 @@ def train_family(fl, pin, label: str, flags: list, epochs: int,
              f"{'finite floats' if fid else 'N/A'}")
     want = {"fused_linear": 0,
             "per_image_normalize": NORM_LAUNCHES_PER_EPOCH * epochs * fid,
-            "batchnorm": 0, "batchnorm_eval": 0}
+            "batchnorm": 0, "batchnorm_eval": 0, "batchnorm_swish": 0}
     if launches != want or by_path:
         fail(f"train {label}: kernel launches {launches} by path {by_path}, "
              f"expected {want}")
@@ -2425,7 +2561,8 @@ def scan_kind(fl, pin, card: str, label: str, model: str,
     want = {"fused_linear": SCAN_K * KIND_LAUNCHES[label],
             "per_image_normalize": 0,
             "batchnorm": SCAN_K * BN_STEP_LAUNCHES[label],
-            "batchnorm_eval": 0}
+            "batchnorm_eval": 0,
+            "batchnorm_swish": SCAN_K * BN_SWISH_LAUNCHES[label]}
     want_paths = {} if model in ("birds", "mnist") else {
         k: SCAN_K * v for k, v in planned_paths(
             fl, torch, STEP_SHAPES[model]).items()}
@@ -2717,7 +2854,7 @@ def ddp_nccl_w1(fl, pin, card: str) -> tuple:
     want = {"fused_linear": DDP_W1_STEPS * LAUNCHES_PER_STEP,
             "per_image_normalize": 0,
             "batchnorm": DDP_W1_STEPS * BN_STEP_LAUNCHES["betavaegan observed"],
-            "batchnorm_eval": 0}
+            "batchnorm_eval": 0, "batchnorm_swish": 0}
     if launches != want:
         fail(f"[ddp] nccl w1: launches {launches}, expected {want}")
     say(f"[ddp] nccl w1: β-VAE-GAN observed at batch {BATCH}, bf16, full "
@@ -2977,7 +3114,7 @@ def ddp_gloo_w2(fl, pin, card: str) -> list:
                 if dtype == "bfloat16" else 0, "per_image_normalize": 0,
                 "batchnorm": DDP_W2_STEPS
                 * BN_STEP_LAUNCHES["betavaegan observed"],
-                "batchnorm_eval": 0}
+                "batchnorm_eval": 0, "batchnorm_swish": 0}
         if any(r["launches"] != want for r in res):
             failed.append(f"{key}: launches {[r['launches'] for r in res]}, "
                           f"expected {want} a rank")
@@ -3076,8 +3213,11 @@ def main() -> None:
 
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     try:
+        # 3a. NVAE first, while the card's memory is free: its graph holds
+        # most of it at batch 128
+        runs = [train_nvae(fl, pin, card)]
         # 3b. the CUDA graphs of train/scan.py against the eager steps
-        runs = scan_check(fl, pin, card)
+        runs += scan_check(fl, pin, card)
         # 4. FID set-up
         stats_path = fid_setup(torch)
         # 5. train: the β-VAE-GAN observed with FID, intent saving its
@@ -3229,7 +3369,8 @@ def main() -> None:
                     "BatchNorm and the activation after it",
         "launches": launches["batchnorm"] + launches["batchnorm_eval"],
         "launches_by_path": {"rows": launches["batchnorm"],
-                             "eval": launches["batchnorm_eval"]},
+                             "eval": launches["batchnorm_eval"],
+                             "swish": launches["batchnorm_swish"]},
         "error_over_tolerance": bn_err,
         "ms": bn_times["per_step"]["kernel_ms"],
         "device_ms": bn_times["per_step"]["kernel_device_ms"],

@@ -5,8 +5,9 @@ surface plus ``--device``:
         --name beta25 --beta 25 --calc_fid False --synthetic_data True \
         [--device cuda|cpu] [flags of disentangle_mlp_tpu.cli.train ...]
 
-``--model`` is ``vae``, ``gan`` or ``betavaegan`` (``vaegan`` is the same
-experiment). ``--dataset birds|mnist`` trains that dataset's model family
+``--model`` is ``vae``, ``gan``, ``betavaegan`` (``vaegan`` is the same
+experiment) or ``nvae`` (NVAE at its CelebA 64x64 widths by default, its
+flags under NVAE's names; its published ``--lr 0.01``; one device). ``--dataset birds|mnist`` trains that dataset's model family
 whatever ``--model`` says (train/families.py; birds needs ``--img_size
 128``, MNIST's idx files ``--input_channels 1``). One ``--load_path``
 resumes training from a checkpoint of either package; for the CelebA

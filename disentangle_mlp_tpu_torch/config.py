@@ -145,6 +145,20 @@ class Config:
     # only, loaded when the file exists (models/resnet.py).
     resnet18_ckpt: str = ""
 
+    # NVAE (--model nvae; models/nvae.py Arch): the flags of its widths and
+    # latent groups, under its names, at the defaults of its CelebA 64x64
+    # command (github.com/NVlabs/NVAE README; arXiv:2007.03898); its other
+    # sizes and weight decays are constants of models/ and train/nvae.py.
+    # Its normalizing flows (--num_nf) are not ported: the port runs NVAE's
+    # --num_nf 0. Its published lr is 1e-2 (pass --lr 0.01). For NVAE
+    # n_hidden is ignored: its FID draws are every latent group's ε.
+    num_channels_enc: int = 64
+    num_channels_dec: int = 64
+    num_latent_scales: int = 3
+    num_groups_per_scale: int = 20
+    ada_groups: bool = True
+    num_latent_per_group: int = 20
+
     # --- derived output paths (filled by finalize()) ---------------------
     model_path: str = ""
     results_path_recons: str = ""
@@ -308,6 +322,14 @@ def build_arg_parser(description: str = "") -> argparse.ArgumentParser:
     p.add_argument("--cache_decoded", type=str,
                    default=d.cache_decoded,
                    choices=["auto", "on", "off"])
+    # here, not at the top: models/ imports torch, which this module does not
+    from .models.nvae import FLAGS as NVAE_FLAGS
+
+    for name in NVAE_FLAGS:
+        v = getattr(d, name)
+        p.add_argument(f"--{name}", type=str2bool if isinstance(v, bool)
+                       else type(v), default=v,
+                       help="NVAE (--model nvae)")
     return p
 
 

@@ -68,6 +68,8 @@ def _kernel(shape, fan_in: int, kernel_init: str, generator):
         return _normal(shape, DCGAN_STD, generator)
     if kernel_init == "lecun":
         return _lecun_normal(shape, fan_in, generator)
+    if kernel_init == "uniform":  # PyTorch's own Conv2d default
+        return _uniform(shape, fan_in, generator)
     raise ValueError(f"unknown kernel_init {kernel_init!r}")
 
 
@@ -93,26 +95,58 @@ def activate(x: torch.Tensor, activation: str) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """Conv2d(k, stride, padding) on NCHW; weight OIHW. ``bias`` is
-    "uniform", "zeros" or "none"; ``kernel_init`` "dcgan" or "lecun"."""
+    """Conv2d(k, stride, padding, groups) on NCHW; weight OIHW, (out,
+    in / groups, k, k). ``bias`` is "uniform", "zeros" or "none";
+    ``kernel_init`` "dcgan", "lecun" or "uniform" (PyTorch's Conv2d
+    default, U(±1/sqrt(fan_in))).
+
+    ``weight_norm`` is NVAE's weight normalisation (Vahdat & Kautz 2020,
+    its ``Conv2D``): the kernel used is exp(log_g)·v / (‖v‖ + 1e-5) with
+    ‖v‖ each output channel's norm, in float32, then cast to the compute
+    dtype; ``log_weight_norm`` (out, 1, 1, 1) starts at log(‖v‖ + 1e-2).
+    ``weight_normalized`` holds the float32 kernel of the latest forward
+    of a weight-normalised convolution (the spectral regularisation reads
+    it, as NVAE's does)."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 5,
                  stride: int = 1, padding: int = 2,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 bias: str = "uniform", kernel_init: str = "dcgan"):
+                 bias: str = "uniform", kernel_init: str = "dcgan",
+                 groups: int = 1, weight_norm: bool = False):
         super().__init__()
         k = kernel_size
         self.stride, self.padding, self.dtype = stride, padding, dtype
-        fan_in = in_ch * k * k
+        self.groups = groups
+        fan_in = in_ch // groups * k * k
         self.weight = nn.Parameter(
-            _kernel((features, in_ch, k, k), fan_in, kernel_init, generator))
+            _kernel((features, in_ch // groups, k, k), fan_in, kernel_init,
+                    generator))
         self.bias = _bias(features, fan_in, bias, generator)
+        self.log_weight_norm = None
+        if weight_norm:
+            with torch.no_grad():
+                norm = self.weight.flatten(1).norm(dim=1)
+            self.log_weight_norm = nn.Parameter(
+                torch.log(norm + 1e-2).view(-1, 1, 1, 1))
+        self.weight_normalized: Optional[torch.Tensor] = None
+
+    def normalized(self) -> torch.Tensor:
+        """The float32 kernel the convolution uses."""
+        if self.log_weight_norm is None:
+            return self.weight
+        norm = torch.sqrt(torch.sum(self.weight * self.weight,
+                                    dim=[1, 2, 3]))
+        return torch.exp(self.log_weight_norm) * self.weight \
+            / (norm.view(-1, 1, 1, 1) + 1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
-                     self.padding)
+        w = self.normalized()
+        if self.log_weight_norm is not None:
+            self.weight_normalized = w
+        y = F.conv2d(x.to(dt), w.to(dt), None, self.stride, self.padding,
+                     1, self.groups)
         return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 
@@ -196,12 +230,23 @@ class _MarkBackward(torch.autograd.Function):
         return g, None
 
 
+def marked(tag: str, fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` with device marks ``<tag>.fwd.begin``/``.end`` around its
+    forward and ``<tag>.bwd.begin``/``.end`` around its backward (views and
+    mark kernels: the values are the same)."""
+    x = _MarkBackward.apply(x, tag + ".bwd.end")
+    runtime.mark(tag + ".fwd.begin", x)
+    y = fn(x)
+    runtime.mark(tag + ".fwd.end", y)
+    return _MarkBackward.apply(y, tag + ".bwd.begin")
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with torch semantics (eps 1e-5, running-stat decay 0.9,
     E[x²]−E[x]² variance, Bessel-corrected ``running_var``) over every axis
     but the channel axis 1: float32 statistics, compute-dtype output, and
-    the ``activation`` that follows it ("none", "relu" or "leaky_relu"),
-    computed in float32 before the one rounding. ``groups > 1`` emulates
+    the ``activation`` that follows it ("none", "relu", "leaky_relu" or
+    "swish"), computed in float32 before the one rounding. ``groups > 1`` emulates
     torch DataParallel: contiguous batch groups are normalized with their
     own statistics and only group 0 updates the running statistics
     (disentangle_mlp_tpu/models/layers.py _ManualBN). Its passes are
@@ -244,12 +289,8 @@ class BatchNorm(nn.Module):
         if not runtime.spans_on():
             return self._normalize(x, train, activation)
         self._trace_calls += 1
-        tag = f"{self._trace_name}#{self._trace_calls}"
-        x = _MarkBackward.apply(x, tag + ".bwd.end")
-        runtime.mark(tag + ".fwd.begin", x)
-        y = self._normalize(x, train, activation)
-        runtime.mark(tag + ".fwd.end", y)
-        return _MarkBackward.apply(y, tag + ".bwd.begin")
+        return marked(f"{self._trace_name}#{self._trace_calls}",
+                      lambda t: self._normalize(t, train, activation), x)
 
     def _normalize(self, x: torch.Tensor, train: bool,
                    activation: str = "none") -> torch.Tensor:

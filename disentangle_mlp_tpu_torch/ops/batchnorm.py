@@ -1,6 +1,7 @@
-"""BatchNorm with torch semantics and the activation that follows it:
-statistics over every axis but 1, float32; y = act(x·inv + shift) in the
-compute dtype; an explicit backward.
+"""BatchNorm with torch semantics and the activation that follows it
+(ReLU, LeakyReLU or Swish, z·σ(z)): statistics over every axis but 1,
+float32; y = act(x·inv + shift) in the compute dtype; an explicit
+backward.
 
 Hand-written CUDA kernels for Hopper, ``csrc/batchnorm.cu``. They replace no
 TPU kernel: the JAX package leaves BatchNorm to XLA
@@ -45,7 +46,9 @@ on that mesh's rank 0 and its statistics are broadcast from there.
 
 ``launches`` counts calls that ran the kernels, forward and backward each
 one, whatever number of kernels a call starts; ``path_launches`` splits
-them into train mode (``rows``) and eval mode (``eval``). While a CUDA graph is
+them into train mode (``rows``) and eval mode (``eval``), and counts apart,
+under ``swish``, the calls of either mode whose activation is Swish (not
+again in ``launches``). While a CUDA graph is
 captured on a stream under :func:`capture_scope`, calls on that stream (the
 backward's too, which runs on autograd's thread) record their launches in
 the scope's counter instead, and each replay adds them (:func:`replayed`).
@@ -64,7 +67,10 @@ import torch
 from ..parallel.mesh import all_reduce_sum, broadcast_
 from .fused_linear import LEAKY_SLOPE
 
-ACTIVATIONS = {"none": 0, "relu": 1, "leaky_relu": 2}
+ACTIVATIONS = {"none": 0, "relu": 1, "leaky_relu": 2, "swish": 3}
+# path_launches keys that count calls (``launches`` sums them); ``swish``
+# counts the Swish calls among them
+PATHS = ("rows", "eval")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # elements of one 16-byte access
 VECTOR = {torch.float32: 4, torch.bfloat16: 8}
@@ -108,18 +114,19 @@ def replayed(counts: collections.Counter) -> None:
     """Count the launches of one replay of a graph whose capture recorded
     ``counts``."""
     global launches
-    launches += sum(counts.values())
+    launches += sum(counts[p] for p in PATHS)
     path_launches.update(counts)
 
 
-def _count(path: str, stream: int) -> None:
+def _count(path: str, stream: int, activation: str = "none") -> None:
     global launches
     rec = _recording.get(stream)
-    if rec is not None:
-        rec[path] += 1
-    else:
+    keys = (path, "swish") if activation == "swish" else (path,)
+    if rec is None:
         launches += 1
-        path_launches[path] += 1
+        rec = path_launches
+    for k in keys:
+        rec[k] += 1
 
 
 class Layout(NamedTuple):
@@ -161,6 +168,8 @@ def _activate(z: torch.Tensor, activation: str) -> torch.Tensor:
         return torch.where(z < 0, 0.0, z)
     if activation == "leaky_relu":
         return torch.where(z > 0, z, z * LEAKY_SLOPE)
+    if activation == "swish":
+        return z * torch.sigmoid(z)
     return z
 
 
@@ -169,6 +178,9 @@ def _slope(z: torch.Tensor, activation: str):
         return (z > 0).float()
     if activation == "leaky_relu":
         return torch.where(z > 0, 1.0, LEAKY_SLOPE)
+    if activation == "swish":
+        s = torch.sigmoid(z)
+        return s * (1.0 + z * (1.0 - s))
     return 1.0
 
 
@@ -462,7 +474,7 @@ def _forward(x, weight, bias, running_mean, running_var, o: Options,
                                   bias - running_mean * inv,
                                   torch.zeros_like(inv)])[:, None]
         if call.cuda:
-            _count("eval", _stream(x))
+            _count("eval", _stream(x), o.activation)
         return y, x, params, call
     keep, take = o.momentum, 1.0 - o.momentum
     partials = ops.stats(x, lay, g, splits, **call.aligned(x))
@@ -491,7 +503,7 @@ def _forward(x, weight, bias, running_mean, running_var, o: Options,
     ops.apply(x, lay, g, splits, params, o.activation, y,
               **call.aligned(x, y))
     if call.cuda:
-        _count("rows", _stream(x))
+        _count("rows", _stream(x), o.activation)
     return y, x, params, call
 
 
@@ -516,7 +528,7 @@ def _backward(x, weight, dy, params, call: _Call, o: Options,
                        float(call.count), o.train, o.activation, dx,
                        **call.aligned(x, dy, dx))
     if call.cuda:
-        _count("rows" if o.train else "eval", _stream(x))
+        _count("rows" if o.train else "eval", _stream(x), o.activation)
     return dx, dgamma, dbeta
 
 

@@ -1,6 +1,8 @@
 """Optimizer, label sampling and the experiments' shared helpers of the port
 (disentangle_mlp_tpu/train/common.py).
 
+:class:`Adamax` is NVAE's optimizer, in the same form.
+
 :class:`Adam` is optax.adam with torch.optim.Adam's defaults (β1 0.9,
 β2 0.999, eps 1e-8), applied to an explicit list of parameters: every
 parameter of the list takes a step each call (a missing gradient counts as
@@ -180,6 +182,53 @@ class Adam:
         if compact:
             for dst, src in zip(self.mu + self.nu, mu + nu):
                 dst.copy_(src)
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """The tensors a step updates in place: moments and count."""
+        return self.mu + self.nu + [self.count]
+
+
+class Adamax:
+    """NVAE's Adamax (its ``thirdparty/adamax.py``, the ``--fast_adamax``
+    multi-tensor form) with L2 weight decay: g ← g + wd·p; m ← β1·m +
+    (1 − β1)·g; u ← max(β2·u, |g| + eps); p ← p − lr/(1 − β1^t)·m/u.
+    NVAE's defaults: β (0.9, 0.999), eps 1e-3. ``mu`` holds m (the first
+    moment, as :class:`Adam`'s), ``nu`` u; the count is a 0-d int32 device
+    tensor and the bias correction is computed from it there, so a CUDA
+    graph of a step stays right at every replay."""
+
+    def __init__(self, params: Sequence[torch.Tensor], lr: float,
+                 weight_decay: float = 0.0, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-3):
+        self.params: List[torch.Tensor] = list(params)
+        self.lr, self.weight_decay = lr, weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.count = torch.zeros((), dtype=torch.int32,
+                                 device=self.params[0].device)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
+        if len(grads) != len(self.params):
+            raise ValueError(f"{len(grads)} gradients for "
+                             f"{len(self.params)} parameters")
+        g = [torch.zeros_like(p) if d is None else d.float()
+             for p, d in zip(self.params, grads)]
+        if self.weight_decay:
+            torch._foreach_add_(g, self.params, alpha=self.weight_decay)
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        bound = torch._foreach_abs(g)
+        torch._foreach_add_(bound, self.eps)
+        torch._foreach_maximum_(self.nu, bound)
+        self.count.add_(1)
+        bc = 1.0 - torch.pow(self.b1, self.count.float())
+        upd = torch._foreach_div(self.mu, self.nu)
+        torch._foreach_div_(upd, bc)
+        torch._foreach_mul_(upd, -self.lr)
+        torch._foreach_add_(self.params, upd)
 
     def state_tensors(self) -> List[torch.Tensor]:
         """The tensors a step updates in place: moments and count."""

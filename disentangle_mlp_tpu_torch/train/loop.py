@@ -13,6 +13,9 @@ Logged keys per experiment, as the JAX package logs them:
               the true average D loss, the JAX package's documented
               deviation from the reference's logging bug)
   betavaegan: {Epoch, Avg Eec Loss, Avg Dnc Loss, Avg Dis Loss, FID}
+  nvae:       {Epoch, Avg Loss, Avg Recon Loss, Avg KL, FID}   (per image;
+              one device; n_hidden becomes the width of every latent
+              group's ε, which its FID latents are)
   families:   {Epoch, Avg Loss, Avg Recon Loss, FID}   (FID 'N/A' for
               mnist: its samples are not 3-channel n_hidden decodes)
 
@@ -54,6 +57,7 @@ eager.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
@@ -69,6 +73,7 @@ from ..eval.samples import (_sample_latents, gen_reconstructions,
                             generate_fid_samples, generate_samples,
                             write_sample_files)
 from ..models.layers import local_groups
+from ..models.nvae import Arch, latent_width
 from ..parallel.mesh import (Mesh, broadcast_, make_mesh,
                              maybe_initialize_distributed, replicate, spawn)
 from ..utils import runtime
@@ -77,6 +82,7 @@ from ..utils.logger import Logger
 from ..utils.runtime import float32_policy
 from .families import FamilyExperiment
 from .gan import GANExperiment
+from .nvae import NVAEExperiment
 from .scan import MultiStep, make_multi_step, state_tensors
 from .vae import VAEExperiment
 from .vaegan import VAEGANExperiment
@@ -577,6 +583,45 @@ def _run_vaegan(cfg: Config, logger, device, mesh=None) -> Dict:
     return run.finish(exp.decode, exp.reconstruct)
 
 
+def run_nvae(cfg: Config, logger: Optional[Logger] = None,
+             device="cuda", devices=None) -> Dict:
+    """Train NVAE (train/nvae.py) for ``cfg.epochs``, then sweep
+    ``--load_path``; returns the last epoch's {Avg Loss, Avg Recon Loss,
+    Avg KL, FID}, ``images_per_sec``, ``step_metrics`` and the sweep's
+    records. One device: ``devices`` may name one."""
+    return _parallel(_run_nvae, cfg, logger, device, devices)
+
+
+def _run_nvae(cfg: Config, logger, device, mesh=None) -> Dict:
+    # the FID and sample latents are every group's ε
+    cfg = dataclasses.replace(cfg, n_hidden=latent_width(
+        Arch.from_config(cfg)))
+    run = _Run(cfg, NVAEExperiment, logger, device, mesh)
+    exp = run.exp
+
+    def progress(i, m, b):
+        print(f"Train Epoch: {epoch} [{i}/{len(run.train_loader)}] "
+              f"Loss: {float(m['loss']):.6f} recon "
+              f"{float(m['recon']):.2f} KL {float(m['kl']):.2f}",
+              flush=True)
+
+    for epoch in run.epochs():
+        avg = run.train_epoch(("loss", "recon", "kl"), progress)
+        b = cfg.batch_size_train
+        loss, recon, kl = (avg[k] * b for k in ("loss", "recon", "kl"))
+        run.checkpoint(epoch)
+        run.emitter.emit(
+            _maybe_fid_async(cfg, exp.decode, epoch, cfg.fid_path_samples,
+                             device=run.device, mesh=mesh),
+            lambda fid, e=epoch, a=loss, r=recon, k=kl: {
+                "Epoch": e, "Avg Loss": a, "Avg Recon Loss": r, "Avg KL": k,
+                "FID": fid},
+            f"====> Epoch: {epoch} Average loss: {loss:.4f} (recon "
+            f"{recon:.4f}, KL {kl:.4f}) FID: {{fid}} "
+            f"({run.meter.rate():.1f} img/s)")
+    return run.finish(exp.decode, exp.reconstruct)
+
+
 def sweep_epoch(epoch: int, previous: int) -> int:
     """The epoch a sweep files a checkpoint under: its own, unless that is
     not above the previous checkpoint's, then the previous one plus 1 (the
@@ -662,4 +707,4 @@ def _run_family(cfg: Config, logger, device, mesh=None) -> Dict:
 
 
 RUNNERS = {"vae": run_vae, "gan": run_gan,
-           "betavaegan": run_vaegan, "vaegan": run_vaegan}
+           "betavaegan": run_vaegan, "vaegan": run_vaegan, "nvae": run_nvae}

@@ -66,7 +66,7 @@ from torch import nn
 from ..ops import batchnorm as bn
 from ..ops import fused_linear as fl
 from ..utils import runtime
-from .common import Adam, label_tensor
+from .common import Adam, Adamax, label_tensor
 
 Draws = Sequence[Dict]
 
@@ -79,7 +79,7 @@ def state_tensors(exp) -> List[torch.Tensor]:
         for o in (v.values() if isinstance(v, dict) else (v,)):
             if isinstance(o, nn.Module):
                 tensors = itertools.chain(o.parameters(), o.buffers())
-            elif isinstance(o, Adam):
+            elif isinstance(o, (Adam, Adamax)):
                 tensors = o.state_tensors()
             else:
                 continue
@@ -179,6 +179,9 @@ class MultiStep:
         main.wait_stream(stream)
         for v in out.values():
             v.record_stream(main)
+        # the graph allocates from a pool of its own: give it back what the
+        # warm-up steps left cached (NVAE's activations fill half the card)
+        torch.cuda.empty_cache()
         # the graph's inputs, outside its memory pool
         self._batches = torch.empty_like(batches)
         self._inputs = [{key: v.clone() for key, v in d.items()}

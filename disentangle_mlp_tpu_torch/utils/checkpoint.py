@@ -6,7 +6,9 @@ A file is the msgpack (utils/msgpack.py) of ``{"epoch", "states": {name:
 {"params", "batch_stats", "opt_state"}}}``, the names those of the JAX
 package's experiments (``model`` for the VAE, ``g``/``d`` for the GAN,
 ``eg``/``d`` for the β-VAE-GAN), every tree in the flax layout and
-``opt_state`` as optax writes its Adam (utils/params.py). The experiments'
+``opt_state`` as optax writes its Adam (utils/params.py). NVAE, which the
+JAX package lacks, saves ``model`` with flat trees under its modules' own
+names and its Adamax as ``{"count", "mu", "nu"}`` (train/nvae.py). The experiments'
 ``states()`` and ``load_states()`` make and take that dict. One file per
 saved epoch under ``<save_path>/models/model_<epoch+1>``;
 ``rotate_checkpoints`` keeps the newest N.

@@ -21,6 +21,7 @@ from disentangle_mlp_tpu import helper_functions as jax_helpers
 from disentangle_mlp_tpu_torch import config, helper_functions
 from disentangle_mlp_tpu_torch.data import pipeline
 from disentangle_mlp_tpu_torch.eval import fid, reproduce
+from disentangle_mlp_tpu_torch.models.nvae import FLAGS as NVAE_FLAGS
 from disentangle_mlp_tpu_torch.train import loop
 from disentangle_mlp_tpu_torch.utils import logger
 from tests.test_torch_port_loop import REPO
@@ -45,7 +46,8 @@ def test_port_lazy_names_resolve_to_the_port(name):
 
 def test_port_lazy_api_is_usable_and_the_import_cheap():
     assert pkg.Config().n_hidden == 128
-    assert set(pkg.RUNNERS) == {"vae", "gan", "betavaegan", "vaegan"}
+    # the JAX package's runners, and NVAE, which the port alone trains
+    assert set(pkg.RUNNERS) == {"vae", "gan", "betavaegan", "vaegan", "nvae"}
     with pytest.raises(AttributeError):
         pkg.not_a_name  # noqa: B018
     code = ("import sys, disentangle_mlp_tpu_torch as p; "
@@ -111,8 +113,16 @@ def test_port_envsetter_and_config_from_args_equal_jax(tmp_path, make_dirs):
     want = jax_config.EnvSetter("d", argv=argv,
                                 make_dirs=make_dirs).get_parser()
     assert isinstance(got, config.Config)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert dataclasses.asdict(config.config_from_args(
+
+    def shared(cfg):
+        # the port's Config adds NVAE's fields, at their defaults here
+        d = dataclasses.asdict(cfg)
+        for name in NVAE_FLAGS:
+            assert d.pop(name) == getattr(config.Config, name)
+        return d
+
+    assert shared(got) == dataclasses.asdict(want)
+    assert shared(config.config_from_args(
         argv, make_dirs=make_dirs)) == dataclasses.asdict(want)
     assert got.save_path == str(tmp_path / "api")
     assert got.beta == 25.0 and got.n_z == [8, 4, 4]

@@ -226,6 +226,64 @@ def test_plain_passes_match_autograd_of_the_graph(shape, mode, activation):
                                    atol=1e-5, msg=name)
 
 
+# ------------------------------------------------------------------ swish --
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swish_matches_autograd_of_silu_of_batch_norm(dtype, mode):
+    """Swish (NVAE's BatchNorm-Swish): the plain passes against float64
+    autograd of ``silu(F.batch_norm(x))`` (torch's own BatchNorm, biased
+    variance, decay 0.95 as NVAE's momentum 0.05), forward and backward.
+    float32 keeps the plain version's 1e-5; bf16 x and output allow one
+    bf16 step of y, and dx, dγ, dβ are compared against autograd of the
+    same bf16 input, with one bf16 step plus 1e-3 of the largest value
+    (the gradient's terms cancel in float32 after the one rounding of y)."""
+    train = mode == "train"
+    shape = (16, 6, 5, 4)
+    w, b, rm, rv = _params(shape[1], "cpu", 4)
+    x = _input(shape, "cpu", 5, dtype, True)
+    dy = torch.randn(shape, generator=torch.Generator().manual_seed(6)
+                     ).to(dtype)
+    wd, bd = (t.double().requires_grad_() for t in (w, b))
+    rmd, rvd = rm.double(), rv.double()
+    xd = x.double().requires_grad_()
+    y_want = torch.nn.functional.silu(torch.nn.functional.batch_norm(
+        xd, rmd, rvd, wd, bd, training=train, momentum=0.05, eps=1e-5))
+    y_want.backward(dy.double())
+
+    w.requires_grad_(), b.requires_grad_()
+    xt = x.clone().requires_grad_()
+    y = bn.batch_norm(xt, w, b, rm, rv, train=train, momentum=0.95,
+                      activation="swish")
+    y.backward(dy)
+    assert y.dtype == dtype and xt.grad.dtype == dtype
+    step = 1e-5 if dtype == torch.float32 else BF16_STEP
+    for name, got, want in (("y", y, y_want), ("dx", xt.grad, xd.grad),
+                            ("dγ", w.grad, wd.grad), ("dβ", b.grad, bd.grad),
+                            ("mean", rm, rmd), ("var", rv, rvd)):
+        want = want.detach()
+        atol = 1e-5 if dtype == torch.float32 or name in ("mean", "var") \
+            else (0 if name == "y" else 1e-3) * want.abs().max().item() \
+            + 1e-6
+        torch.testing.assert_close(got.double(), want, rtol=step,
+                                   atol=atol, msg=name)
+
+
+def test_swish_calls_are_counted_apart():
+    """A Swish call counts once in ``launches`` (its mode) and once more
+    under ``path_launches["swish"]``, eager and through a capture."""
+    before, paths = bn.launches, collections.Counter(bn.path_launches)
+    counts = collections.Counter()
+    with bn.capture_scope(_Stream(), counts):
+        bn._count("rows", _Stream.cuda_stream, "swish")
+        bn._count("rows", _Stream.cuda_stream, "relu")
+    assert counts == {"rows": 2, "swish": 1}
+    bn._count("eval", 999, "swish")
+    bn.replayed(counts)
+    assert bn.launches == before + 3
+    assert bn.path_launches - paths == {"rows": 2, "eval": 1, "swish": 2}
+
+
 # ------------------------------------------------------------- the card --
 
 def _run(fn, x, dy, state, activation, train=True, groups=1):
@@ -310,6 +368,40 @@ def test_kernels_match_plain_at_the_step_shapes(card):
         assert err["kink"] <= 1e-3 * x.numel(), (shape, err)
         assert max(v for k, v in err.items() if k != "kink") <= 1, \
             (shape, activation, err)
+
+
+# (shape, forward calls a step) of NVAE's BatchNorm-Swish at the CelebA
+# 64x64 widths, batch 128 (h100_bench/reference/nvae.py batchnorm_calls)
+NVAE_SWISH_SHAPES = [
+    ((128, 64, 64, 64), 2),      # preprocess, 64x64x64
+    ((128, 128, 32, 32), 80),    # encoder cells at 32x32
+    ((128, 768, 32, 32), 80),    # decoder cells' expansion at 32x32
+    ((128, 3072, 8, 8), 16),     # decoder cells' expansion at 8x8
+    ((128, 192, 64, 64), 2),     # the postprocess normal cell
+]
+
+
+@pytest.mark.cuda
+def test_swish_kernels_match_plain_at_nvae_shapes(card):
+    """BatchNorm-Swish at NVAE's shapes, bf16 channels-last, train mode:
+    the kernels against the plain passes, within the step shapes' bounds,
+    two launches bit-identical, each call counted once more as Swish."""
+    dev = torch.device("cuda")
+    for i, (shape, _) in enumerate(NVAE_SWISH_SHAPES):
+        x = _input(shape, dev, 70 + i, torch.bfloat16, True)
+        dy = _input(shape, dev, 90 + i, torch.bfloat16, True)
+        state = _params(shape[1], dev, 30 + i)
+        swish = bn.path_launches["swish"]
+        got = _run(bn.batch_norm, x, dy, state, "swish")
+        assert bn.path_launches["swish"] == swish + 2
+        again = _run(bn.batch_norm, x, dy, state, "swish")
+        want = _run(bn.batch_norm_plain, x, dy, state, "swish")
+        torch.cuda.synchronize()
+        for key in got:
+            assert torch.equal(got[key], again[key]), (shape, key)
+        err = compare(got, want, x, state)
+        assert max(v for k, v in err.items() if k != "kink") <= 1, \
+            (shape, err)
 
 
 @pytest.mark.cuda

@@ -31,6 +31,7 @@ from disentangle_mlp_tpu.config import Config as JaxConfig
 from disentangle_mlp_tpu_torch.bo import driver, gp
 from disentangle_mlp_tpu_torch.cli import bo as cli_bo
 from disentangle_mlp_tpu_torch.config import Config
+from disentangle_mlp_tpu_torch.models.nvae import FLAGS as NVAE_FLAGS
 from tests.test_torch_port_loop import TOY_FLAGS, _stats_npz, _toy_kwargs
 
 RTOL = 1e-12
@@ -155,7 +156,11 @@ def test_port_beta_run_config_equals_jax(tmp_path, finalized):
         bases = [b.finalize() for b in bases]
     got, want = (mod.beta_run_config(base, 12.5, epochs=2)
                  for mod, base in zip((driver, jax_driver), bases))
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    got_fields = dataclasses.asdict(got)
+    # the port's Config adds NVAE's fields, at their defaults here
+    for name in NVAE_FLAGS:
+        assert got_fields.pop(name) == getattr(Config, name)
+    assert got_fields == dataclasses.asdict(want)
     assert got.beta == 12.5 and got.epochs == 2
     root = (f"{tmp_path}/bo_cfg/bo_cfg_beta12.5" if finalized
             else f"{tmp_path}/bo_cfg_beta12.5")
