@@ -40,7 +40,9 @@ Phases, each fatal on failure:
    and backward, against the bytes the function has to move at 3.35 TB/s
    (and the two-pass design's own), the library's ``F.batch_norm`` with
    the activation in place and the ATen chain they replace, and summed
-   over one step's 42 forward and 38 backward calls;
+   over one step's 42 forward and 38 backward calls; the kernels alone at
+   each of NVAE's 18 BatchNorm shapes (``[time] batchnorm nvae``), summed
+   over its step's 436 calls each way;
    then train/scan.py's CUDA graphs (``[scan]``): for each of the six step
    kinds at full default width (the β-VAE-GAN in both freeze modes, the
    VAE, the DCGAN, the birds and MNIST families), from one copied state,
@@ -70,7 +72,9 @@ Phases, each fatal on failure:
    before each run and read just after, equal to what the run's code path
    launches (fused_linear's also by path; the BatchNorms' a step and a
    FID's, ``BN_STEP_LAUNCHES``, and the Swish calls among them,
-   ``BN_SWISH_LAUNCHES``). The trainer runs its first step
+   ``BN_SWISH_LAUNCHES``; every BatchNorm call through the ring, and
+   NVAE's copies before them ``NVAE_BN_COPIES`` a step). The trainer runs
+   its first step
    eagerly and every later one as a replay of the step's CUDA graph, whose
    capture's launches each replay adds to the counts, and writes its
    checkpoints with the AsyncCheckpointer (how long ``save()`` blocked and
@@ -282,6 +286,12 @@ NVAE_STEPS = 3
 # grid's decoder (4)
 BN_FID_LAUNCHES = 4
 BN_SWEEP_LAUNCHES = BN_FID_LAUNCHES + 9 + 4
+# the copies the BatchNorm calls make before their passes (x to
+# channels-last, dy to x's strides; ops/batchnorm.py path_launches
+# ["copies"]): of the last counted run, and of every run; NVAE's step makes
+# NVAE_BN_COPIES a step
+BN_COPIES = {"last": 0, "total": 0}
+NVAE_BN_COPIES = 0
 # ... and on the birds FID path (train/loop.py run_family): 1000 decoded
 # 128×128 samples, twice per FID epoch as well
 BIRDS_IMG = 128
@@ -636,7 +646,9 @@ def ptxas_summary(log: str) -> str:
              "per_image_normalize", "dmt_bn_reduce_rows",
              "dmt_bn_reduce_grad_rows", "dmt_bn_reduce_finalize",
              "dmt_bn_reduce_grad_finalize", "dmt_bn_elementwise_apply_rows",
-             "dmt_bn_elementwise_grad_rows")
+             "dmt_bn_elementwise_grad_rows", "dmt_bn_reduce_ring",
+             "dmt_bn_reduce_grad_ring", "dmt_bn_elementwise_apply_ring",
+             "dmt_bn_elementwise_grad_ring")
     seen, name, spill = {}, None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -795,10 +807,19 @@ def nvae_reference() -> tuple:
 def nvae_batchnorm_shapes() -> list:
     """((B, C, H, W), activation) of each distinct BatchNorm call of NVAE's
     step at batch B."""
+    return [(s, a) for s, a, _ in nvae_batchnorm_calls()]
+
+
+def nvae_batchnorm_calls() -> list:
+    """((B, C, H, W), activation, calls a step each way) of NVAE's step, the
+    reference's ``batchnorm_calls`` by shape."""
     ref, c = nvae_reference()
-    b = c["batch_size_train"]
-    return sorted({((b, l["features"], l["hw"], l["hw"]), l["act"])
-                   for l in ref.layers(c) if l["kind"] == "bn"})
+    b, calls = c["batch_size_train"], {}
+    for l in ref.layers(c):
+        if l["kind"] == "bn":
+            key = ((b, l["features"], l["hw"], l["hw"]), l["act"])
+            calls[key] = calls.get(key, 0) + 1
+    return [k + (n,) for k, n in sorted(calls.items())]
 
 
 def nvae_linear_shapes() -> list:
@@ -1006,6 +1027,80 @@ def time_batchnorm(bno, torch, card: str) -> dict:
     return {"shapes": rows, "per_step": step}
 
 
+def time_batchnorm_nvae(bno, torch, card: str) -> dict:
+    """At each BatchNorm shape of NVAE's step (batch 128, bf16
+    channels-last, train mode, its activation): the kernels' device-only
+    time a call forward and backward, against the bytes the function has
+    to move at 3.35 TB/s and against the two-pass design's (as
+    ``time_batchnorm``); then both summed over one step's calls, weighted
+    by each shape's count. The plain, library and ATen versions are timed
+    at the β-VAE-GAN's shapes only."""
+    bnt = batchnorm_tests()
+    dev = torch.device("cuda")
+    rows = []
+    for i, (shape, act, n) in enumerate(nvae_batchnorm_calls()):
+        x = bnt._input(shape, dev, 110 + i, torch.bfloat16, True)
+        dy = bnt._input(shape, dev, 150 + i, torch.bfloat16, True)
+        w, b, rm, rv = bnt._params(shape[1], dev, 40 + i)
+        w.requires_grad_(), b.requires_grad_()
+        xg = x.detach().clone().requires_grad_()
+
+        def fwd():
+            with torch.no_grad():
+                return bno.batch_norm(x, w, b, rm, rv, train=True,
+                                      activation=act)
+
+        def both():
+            y = bno.batch_norm(xg, w, b, rm, rv, train=True, activation=act)
+            torch.autograd.grad(y, (xg, w, b), dy)
+
+        label = f"batchnorm nvae {shape} {act}"
+        fwd_ms = time_device_ms(fwd, label=label + " forward")
+        bwd_ms = time_device_ms(both, label=label + " both") - fwd_ms
+        nbytes = x.element_size() * x.numel()
+        r = {"shape": list(shape), "activation": act, "calls": n,
+             "forward_device_ms": fwd_ms, "backward_device_ms": bwd_ms,
+             "forward_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+             "backward_bound_ms": 3 * nbytes / HBM_BYTES_PER_S * 1e3,
+             "forward_two_pass_bound_ms": 3 * nbytes / HBM_BYTES_PER_S * 1e3,
+             "backward_two_pass_bound_ms": 5 * nbytes / HBM_BYTES_PER_S
+             * 1e3}
+        rows.append(r)
+        say(f"[time] batchnorm nvae {tuple(shape)} {act} x{n}: forward "
+            f"device {fwd_ms:.4f} ms (bound {r['forward_bound_ms']:.4f}, "
+            f"{r['forward_bound_ms'] / fwd_ms * 100:.1f} %; two-pass "
+            f"{r['forward_two_pass_bound_ms'] / fwd_ms * 100:.1f} %), "
+            f"backward device {bwd_ms:.4f} ms (bound "
+            f"{r['backward_bound_ms']:.4f}, "
+            f"{r['backward_bound_ms'] / bwd_ms * 100:.1f} %; two-pass "
+            f"{r['backward_two_pass_bound_ms'] / bwd_ms * 100:.1f} %); "
+            f"card {card}")
+        del x, dy, xg
+
+    def total(key):
+        return sum(r[key] * r["calls"] for r in rows)
+
+    step = {k: total(k) for k in (
+        "forward_device_ms", "backward_device_ms", "forward_bound_ms",
+        "backward_bound_ms", "forward_two_pass_bound_ms",
+        "backward_two_pass_bound_ms")}
+    step["device_ms"] = step["forward_device_ms"] + \
+        step["backward_device_ms"]
+    step["bound_ms"] = step["forward_bound_ms"] + step["backward_bound_ms"]
+    step["two_pass_bound_ms"] = (step["forward_two_pass_bound_ms"]
+                                 + step["backward_two_pass_bound_ms"])
+    calls = sum(r["calls"] for r in rows)
+    say(f"[time] batchnorm per nvae step ({calls} forward and {calls} "
+        f"backward calls): device {step['device_ms']:.3f} ms (forward "
+        f"{step['forward_device_ms']:.3f}, backward "
+        f"{step['backward_device_ms']:.3f}), bound {step['bound_ms']:.3f} ms "
+        f"({step['bound_ms'] / step['device_ms'] * 100:.1f} %), two-pass "
+        f"bound {step['two_pass_bound_ms']:.3f} ms "
+        f"({step['two_pass_bound_ms'] / step['device_ms'] * 100:.1f} %); "
+        f"card {card}")
+    return {"shapes": rows, "per_step": step}
+
+
 def fid_setup(torch) -> str:
     """Reference statistics of STATS_IMAGES synthetic images through the
     port's compute_dataset_statistics; the same images against them give
@@ -1073,7 +1168,9 @@ def count_launches(fl, pin, run) -> tuple:
     """``run()`` with every kernel's count set to 0 just before and read
     just after; returns (its result, launches, fused_linear by path,
     seconds). The BatchNorm calls are counted by mode: ``batchnorm`` in
-    train mode, ``batchnorm_eval`` in eval mode."""
+    train mode, ``batchnorm_eval`` in eval mode; every one has to take the
+    ring, and the copies the calls made before their passes are kept in
+    ``BN_COPIES``."""
     import torch
 
     from disentangle_mlp_tpu_torch.ops import batchnorm as bno
@@ -1093,6 +1190,11 @@ def count_launches(fl, pin, run) -> tuple:
     if bno.launches != launches["batchnorm"] + launches["batchnorm_eval"]:
         fail(f"batchnorm: {bno.launches} launches, by mode "
              f"{dict(bno.path_launches)}")
+    if bno.path_launches["ring"] != bno.launches:
+        fail(f"batchnorm: {bno.launches} calls, {bno.path_launches['ring']} "
+             f"of them through the ring: {dict(bno.path_launches)}")
+    BN_COPIES["last"] = bno.path_launches["copies"]
+    BN_COPIES["total"] += BN_COPIES["last"]
     return out, launches, dict(fl.path_launches), wall
 
 
@@ -1258,6 +1360,10 @@ def train_nvae(fl, pin, card: str) -> tuple:
     want = {k: NVAE_STEPS * v for k, v in nvae_step_launches().items()}
     if launches != want:
         fail(f"train nvae: kernel launches {launches}, expected {want}")
+    copies = BN_COPIES["last"]
+    if copies != NVAE_STEPS * NVAE_BN_COPIES:
+        fail(f"train nvae: {copies} copies before the BatchNorm passes, "
+             f"expected {NVAE_STEPS} × {NVAE_BN_COPIES}")
     shapes = [s[:-1] + (s[-1] * NVAE_STEPS,) for s in nvae_linear_shapes()]
     want_paths = planned_paths(fl, torch, shapes)
     if by_path != want_paths:
@@ -1270,7 +1376,9 @@ def train_nvae(fl, pin, card: str) -> tuple:
         f"{wall:.1f} s incl. init; no FID; {held / 1e9:.2f} GB held before "
         f"it, peak {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
         f"reserved; launches {json.dumps(launches)} ({NVAE_STEPS} × the "
-        f"reference's step), fused_linear by path {json.dumps(by_path)}; "
+        f"reference's step, every BatchNorm call through the ring; "
+        f"{copies} copies before them), fused_linear by path "
+        f"{json.dumps(by_path)}; "
         f"last step {json.dumps(out['step_metrics'])}; card {card}")
     return launches, by_path
 
@@ -3210,6 +3318,7 @@ def main() -> None:
     rows = time_fused_linear(fl, torch, card)
     norm_rows = time_per_image_normalize(pin, torch, card)
     bn_times = time_batchnorm(bno, torch, card)
+    bn_nvae_times = time_batchnorm_nvae(bno, torch, card)
 
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     try:
@@ -3370,7 +3479,10 @@ def main() -> None:
         "launches": launches["batchnorm"] + launches["batchnorm_eval"],
         "launches_by_path": {"rows": launches["batchnorm"],
                              "eval": launches["batchnorm_eval"],
-                             "swish": launches["batchnorm_swish"]},
+                             "swish": launches["batchnorm_swish"],
+                             "ring": launches["batchnorm"]
+                             + launches["batchnorm_eval"],
+                             "copies": BN_COPIES["total"]},
         "error_over_tolerance": bn_err,
         "ms": bn_times["per_step"]["kernel_ms"],
         "device_ms": bn_times["per_step"]["kernel_device_ms"],
@@ -3388,6 +3500,11 @@ def main() -> None:
         "times_are": "sums over the BatchNorm calls of one β-VAE-GAN step "
                      "(42 forward, 38 backward)",
         "shapes": bn_times["shapes"],
+        "nvae_step_device_ms": bn_nvae_times["per_step"]["device_ms"],
+        "nvae_step_bound_ms": bn_nvae_times["per_step"]["bound_ms"],
+        "nvae_step_two_pass_bound_ms":
+            bn_nvae_times["per_step"]["two_pass_bound_ms"],
+        "nvae_shapes": bn_nvae_times["shapes"],
     }]
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -39,16 +39,22 @@ on that mesh's rank 0 and its statistics are broadcast from there.
   (rows, C) with its channels contiguous (:func:`layout`): an (N, C) map or
   a channels-last one, which is what the step's convolutions give; any
   other x (contiguous NCHW, say) is copied to channels-last first, and the
-  output and the gradient keep the copy's strides.
+  output and the gradient keep the copy's strides. Where a row is a whole
+  number of 16-byte vectors and every tensor 16-byte aligned, the passes
+  stream through a shared-memory ring filled by bulk copies, one block an
+  SM (:func:`plan` sizes it from the shape and the card); otherwise they
+  read one element an access.
 - On CPU tensors the same passes run in plain PyTorch (:class:`Plain`), so
   the CPU tests hold the formulas, the mesh's all-reduce and the groups
   against the JAX package.
 
 ``launches`` counts calls that ran the kernels, forward and backward each
 one, whatever number of kernels a call starts; ``path_launches`` splits
-them into train mode (``rows``) and eval mode (``eval``), and counts apart,
-under ``swish``, the calls of either mode whose activation is Swish (not
-again in ``launches``). While a CUDA graph is
+them into train mode (``rows``) and eval mode (``eval``), and counts apart
+(not again in ``launches``) the calls of either mode whose activation is
+Swish (``swish``), the calls whose passes all took the ring (``ring``), and
+the copies a call made before its passes (``copies``: x to channels-last,
+dy to x's strides), bytes that no pass counts. While a CUDA graph is
 captured on a stream under :func:`capture_scope`, calls on that stream (the
 backward's too, which runs on autograd's thread) record their launches in
 the scope's counter instead, and each replay adds them (:func:`replayed`).
@@ -80,16 +86,34 @@ MEAN, VAR, RSTD, INV, SHIFT, LIVE = range(6)
 PARAM_ROWS = 6
 FWD_STATS, GRAD_STATS, FWD_APPLY, GRAD_APPLY = range(4)
 FIN_SUM, FIN_NORM = 1, 2
-# A launch aims at TARGET_BLOCKS blocks of 256 threads, two on each of an
-# H100's 132 SMs (on the card, at the step's shapes, 1.5 or 3 an SM were 6 %
-# slower, 8 an SM 22 %). A block gives each thread at least UNROLL vectors
-# (csrc/batchnorm.cu UNROLL), and a rows block at least MIN_ROWS rows, so
-# that its row of partials (two floats a channel of its tile) is at most an
-# eighth of the bf16 it reads.
+# passes that walk their block's stages last to first: the second of each
+# direction, whose first stages then read what the first left in the L2
+REVERSED = (FWD_APPLY, GRAD_APPLY)
+# The ring (csrc/batchnorm.cu MAX_CONSUMERS, MAX_STAGES, BAR_BYTES,
+# SMEM_BYTES): at most MAX_CONSUMERS consumer threads a block beside its
+# producer warp, a whole number of lanes of the tile's 16-byte columns, at
+# most MAX_COLS columns a tile, C cut into more tiles where that keeps at
+# least MIN_CONSUMERS busy; stages of about STAGE_BYTES of each tensor,
+# as many as RING_BYTES holds, at most MAX_STAGES. A block has at least one
+# stage of rows, so small calls spread over fewer blocks.
+MAX_CONSUMERS = 512
+MIN_CONSUMERS = 448
+MAX_COLS = 256
+MAX_STAGES = 16
+STAGE_BYTES = 32 * 1024
+RING_BYTES = 192 * 1024
+BAR_BYTES = 2 * MAX_STAGES * 8
+SMEM_BYTES = 227 * 1024
+# one element an access (odd shapes): a launch aims at TARGET_BLOCKS blocks
+# of 256 threads, each thread with at least UNROLL rows and each block at
+# least MIN_ROWS, so that its row of partials (two floats a channel of its
+# tile) is at most an eighth of the bf16 it reads
 THREADS = 256
 TARGET_BLOCKS = 2 * 132
 UNROLL = 8
 MIN_ROWS = 32
+# the card's SMs where a plan is made without one (the CPU tests): an H100
+H100_SMS = 132
 
 launches = 0
 path_launches: collections.Counter = collections.Counter()
@@ -118,15 +142,19 @@ def replayed(counts: collections.Counter) -> None:
     path_launches.update(counts)
 
 
-def _count(path: str, stream: int, activation: str = "none") -> None:
+def _count(path: str, stream: int, activation: str = "none",
+           ring: bool = False, copies: int = 0) -> None:
     global launches
     rec = _recording.get(stream)
-    keys = (path, "swish") if activation == "swish" else (path,)
     if rec is None:
         launches += 1
         rec = path_launches
-    for k in keys:
-        rec[k] += 1
+    rec[path] += 1
+    for key, on in (("swish", activation == "swish"), ("ring", ring)):
+        if on:
+            rec[key] += 1
+    if copies:
+        rec["copies"] += copies
 
 
 class Layout(NamedTuple):
@@ -150,17 +178,74 @@ def layout(x: torch.Tensor) -> Optional[Layout]:
     return Layout(x.numel() // x.shape[1], x.shape[1])
 
 
-@functools.lru_cache(maxsize=256)
-def plan(lay: Layout, groups: int, vec: int) -> int:
-    """Blocks each group's rows are cut into, for ``vec`` elements an
-    access (1 or the 16-byte vector's)."""
+def _lanes(cols: int) -> int:
+    """Rows side by side for ``cols`` columns: as many as MAX_CONSUMERS
+    holds, whole warps where a count of lanes gives them."""
+    lanes = MAX_CONSUMERS // cols
+    whole = [n for n in range(lanes, 0, -1) if n * cols % 32 == 0]
+    return whole[0] if whole and 2 * whole[0] >= lanes else lanes
+
+
+class Plan(NamedTuple):
+    """How a pass walks (rows, C): ``splits`` blocks a group and channel
+    tile, each on a contiguous row range, ``tiles`` channel tiles of
+    ``cols`` accesses, ``lanes`` rows side by side. ``rows`` rows a stage of
+    the ring and ``stages`` stages; 0 for one element an access."""
+    splits: int
+    tiles: int
+    cols: int
+    lanes: int
+    rows: int
+    stages: int
+
+    @property
+    def threads(self) -> int:
+        """The block: whole consumer warps, then the producer warp (the
+        rows kernels: 256)."""
+        if not self.stages:
+            return THREADS
+        return 32 * -(-self.cols * self.lanes // 32) + 32
+
+    def smem(self, tensors: int, vec: int) -> int:
+        """The ring's dynamic shared memory (csrc/batchnorm.cu ring_smem):
+        the barriers, then the larger of the stages and the stats passes'
+        lane sums."""
+        ring = self.stages * tensors * self.rows * self.cols * 16
+        red = (self.threads - 32) * 2 * vec * 4
+        return BAR_BYTES + max(ring, red)
+
+
+@functools.lru_cache(maxsize=512)
+def plan(lay: Layout, groups: int, vec: int, tensors: int = 1,
+         sms: int = H100_SMS) -> Plan:
+    """The walk of a pass over ``lay`` cut into ``groups`` for ``vec``
+    elements an access (1, or a 16-byte vector's: the ring), streaming
+    ``tensors`` inputs (x; x and dy backward) on a card of ``sms`` SMs. The
+    two passes of a direction take the same plan."""
     per = lay.rows // groups
     vpr = lay.channels // vec
-    cols = min(vpr, THREADS)
-    across = groups * -(-vpr // cols)
-    least = max(MIN_ROWS, THREADS // cols * UNROLL)
-    want = -(-TARGET_BLOCKS // across)
-    return max(1, min(want, per // least))
+    if vec == 1:
+        cols = min(vpr, THREADS)
+        tiles = -(-vpr // cols)
+        least = max(MIN_ROWS, THREADS // cols * UNROLL)
+        want = -(-TARGET_BLOCKS // (groups * tiles))
+        return Plan(max(1, min(want, per // least)), tiles, cols,
+                    THREADS // cols, 0, 0)
+    # equal tiles of at most MAX_COLS columns, the fewest that keep
+    # MIN_CONSUMERS threads busy (else the most busy)
+    shapes = [(vpr // t, _lanes(vpr // t)) for t in range(1, vpr + 1)
+              if vpr % t == 0 and vpr // t <= MAX_COLS]
+    cols, lanes = next((s for s in shapes if s[0] * s[1] >= MIN_CONSUMERS),
+                       max(shapes, key=lambda s: s[0] * s[1]))
+    tiles = vpr // cols
+    row_bytes = cols * 16
+    rows = lanes * max(1, STAGE_BYTES // (lanes * row_bytes))
+    splits = max(1, min(sms // (groups * tiles), per // rows))
+    block_rows = -(-per // splits)
+    chunks = -(-block_rows // rows)  # stages a block walks
+    stages = max(1, min(MAX_STAGES, chunks,
+                        RING_BYTES // (tensors * rows * row_bytes)))
+    return Plan(splits, tiles, cols, lanes, rows, stages)
 
 
 def _activate(z: torch.Tensor, activation: str) -> torch.Tensor:
@@ -204,7 +289,7 @@ class Plain:
         return p[:, None, :, None]
 
     @staticmethod
-    def stats(x, lay, groups, splits):
+    def stats(x, lay, groups, pl):
         xg = Plain._view(x, groups)
         return torch.stack([xg.sum((1, 3)), xg.square().sum((1, 3))], 1)
 
@@ -234,7 +319,7 @@ class Plain:
         return params
 
     @staticmethod
-    def apply(x, lay, groups, splits, params, activation, out,
+    def apply(x, lay, groups, pl, params, activation, out,
               running=None, eps=0.0):
         xg = Plain._view(x, groups)
         if running is None:
@@ -249,7 +334,7 @@ class Plain:
         return out
 
     @staticmethod
-    def grad_stats(x, dy, lay, groups, splits, params, activation):
+    def grad_stats(x, dy, lay, groups, pl, params, activation):
         xg, gr = Plain._grad_terms(x, dy, groups, params, activation)
         return torch.stack([gr.sum((1, 3)), (gr * xg).sum((1, 3))], 1)
 
@@ -276,7 +361,7 @@ class Plain:
         return torch.stack([dmean, dvar], 1) / ranks, dgamma, dbeta
 
     @staticmethod
-    def grad_apply(x, dy, lay, groups, splits, params, coef, count,
+    def grad_apply(x, dy, lay, groups, pl, params, coef, count,
                    centered, activation, out):
         xg, gr = Plain._grad_terms(x, dy, groups, params, activation)
         dx = gr * Plain._col(params[INV])
@@ -289,6 +374,7 @@ class Plain:
 
 
 _lib_handle = None
+_ready: set = set()  # devices whose ring kernels may take SMEM_BYTES
 
 
 def _lib():
@@ -299,15 +385,32 @@ def _lib():
         lib = _build.load("batchnorm")
         vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_float)
-        lib.dmt_bn_pass.argtypes = [i, vp, vp, vp, i, i, ll, i, i, i, vp,
-                                    vp, vp, vp, vp, vp, vp, f, f, i, i, vp]
+        lib.dmt_bn_pass.argtypes = [i, vp, vp, vp, i, ll] + [i] * 8 + \
+            [vp] * 7 + [f, f, i, i, vp]
         lib.dmt_bn_finalize.argtypes = [vp] * 7 + [i] * 5 + [f] * 6 + [vp]
         lib.dmt_bn_grad_finalize.argtypes = [vp] * 6 + [i] * 3 + [f, i, vp]
+        lib.dmt_bn_init.argtypes = []
         for fn in (lib.dmt_bn_pass, lib.dmt_bn_finalize,
-                   lib.dmt_bn_grad_finalize):
+                   lib.dmt_bn_grad_finalize, lib.dmt_bn_init):
             fn.restype = ctypes.c_int
         _lib_handle = lib
     return _lib_handle
+
+
+def _device_lib(device: torch.device):
+    """The library, its ring kernels allowed their shared memory on
+    ``device`` (the current device): once a device, at its first call,
+    which the port makes eagerly before any capture."""
+    lib = _lib()
+    if device.index not in _ready:
+        _check(lib.dmt_bn_init(), "init")
+        _ready.add(device.index)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -325,28 +428,32 @@ def _check(err: int, what: str) -> None:
 
 class Kernel:
     """The passes as launches of ``csrc/batchnorm.cu`` on the current
-    stream of x's device. ``vec`` is 1 for 16-byte accesses."""
+    stream of x's device, walking x as the call's :class:`Plan` says; ``vec``
+    1 takes the ring (16-byte accesses), 0 one element an access with the
+    same blocks."""
 
     @staticmethod
-    def _pass(kind, x, dy, out, lay, groups, splits, vec, params=None,
+    def _pass(kind, x, dy, out, lay, groups, pl, vec, params=None,
               coef=None, partials=None, running=None, eps=0.0, count=0.0,
               centered=0, activation="none"):
         rm, rv, w, b = running if running is not None else (None,) * 4
+        ring = (pl.tiles, pl.lanes, pl.rows, pl.stages,
+                int(kind in REVERSED)) if vec else (0,) * 5
         with torch.cuda.device(x.device):
-            err = _lib().dmt_bn_pass(
+            err = _device_lib(x.device).dmt_bn_pass(
                 kind, x.data_ptr(), _ptr(dy), _ptr(out),
-                _DTYPE_CODES[x.dtype], vec, lay.rows, lay.channels, groups,
-                splits, _ptr(params),
+                _DTYPE_CODES[x.dtype], lay.rows, lay.channels, groups,
+                pl.splits, *ring, _ptr(params),
                 _ptr(coef), _ptr(partials), _ptr(rm), _ptr(rv), _ptr(w),
                 _ptr(b), eps, count, centered, ACTIVATIONS[activation],
                 _stream(x))
-        _check(err, f"pass {kind} ({lay}, groups {groups}, splits {splits})")
+        _check(err, f"pass {kind} ({lay}, groups {groups}, {pl}, vec {vec})")
 
     @staticmethod
-    def stats(x, lay, groups, splits, vec=1):
-        partials = x.new_empty((groups * splits, 2, lay.channels),
+    def stats(x, lay, groups, pl, vec=1):
+        partials = x.new_empty((groups * pl.splits, 2, lay.channels),
                                dtype=torch.float32)
-        Kernel._pass(FWD_STATS, x, None, None, lay, groups, splits, vec,
+        Kernel._pass(FWD_STATS, x, None, None, lay, groups, pl, vec,
                      partials=partials)
         return partials
 
@@ -370,18 +477,18 @@ class Kernel:
         return out
 
     @staticmethod
-    def apply(x, lay, groups, splits, params, activation, out, running=None,
+    def apply(x, lay, groups, pl, params, activation, out, running=None,
               eps=0.0, vec=1):
-        Kernel._pass(FWD_APPLY, x, None, out, lay, groups, splits, vec,
+        Kernel._pass(FWD_APPLY, x, None, out, lay, groups, pl, vec,
                      params=params, running=running, eps=eps,
                      activation=activation)
         return out
 
     @staticmethod
-    def grad_stats(x, dy, lay, groups, splits, params, activation, vec=1):
-        partials = x.new_empty((groups * splits, 2, lay.channels),
+    def grad_stats(x, dy, lay, groups, pl, params, activation, vec=1):
+        partials = x.new_empty((groups * pl.splits, 2, lay.channels),
                                dtype=torch.float32)
-        Kernel._pass(GRAD_STATS, x, dy, None, lay, groups, splits, vec,
+        Kernel._pass(GRAD_STATS, x, dy, None, lay, groups, pl, vec,
                      params=params, partials=partials, activation=activation)
         return partials
 
@@ -400,9 +507,9 @@ class Kernel:
         return coef, dgamma, dbeta
 
     @staticmethod
-    def grad_apply(x, dy, lay, groups, splits, params, coef, count,
+    def grad_apply(x, dy, lay, groups, pl, params, coef, count,
                    centered, activation, out, vec=1):
-        Kernel._pass(GRAD_APPLY, x, dy, out, lay, groups, splits, vec,
+        Kernel._pass(GRAD_APPLY, x, dy, out, lay, groups, pl, vec,
                      params=params, coef=coef, count=count,
                      centered=int(centered), activation=activation)
         return out
@@ -426,46 +533,57 @@ class Options(NamedTuple):
     plain: bool         # the plain passes, on any device
 
 
+# the plain passes' one row of partials a group
+_PLAIN = Plan(1, 1, 1, 1, 0, 0)
+
+
 class _Call:
-    """One call's engine, layout and plan."""
+    """One call's engine and layout, and the walk of its passes."""
 
     def __init__(self, x: torch.Tensor, groups: int, plain: bool):
         self.cuda = x.is_cuda and not plain
         self.ops = Kernel if self.cuda else Plain
         self.lay = layout(x) if self.cuda else None
         v = VECTOR[x.dtype]
-        if self.cuda:
-            self.vec = int(self.lay.channels % v == 0)
-            self.splits = plan(self.lay, groups, v if self.vec else 1)
-        else:
-            self.vec, self.splits = 0, 1
+        self.vector = v if self.cuda and self.lay.channels % v == 0 else 1
+        self.sms = _sms(x.device.index) if self.cuda else H100_SMS
         self.groups = groups
         self.count = x.numel() // (x.shape[1] * groups)
 
+    def plan(self, tensors: int) -> Plan:
+        """The walk of one direction's passes, which stream ``tensors``
+        inputs."""
+        if not self.cuda:
+            return _PLAIN
+        return plan(self.lay, self.groups, self.vector, tensors, self.sms)
+
     def aligned(self, *tensors) -> dict:
-        """Keyword arguments for the kernel's vector width, checked on
-        every tensor the pass touches."""
+        """Keyword arguments for the kernel's access width, checked on
+        every tensor the direction's passes touch: 16-byte vectors through
+        the ring where each is 16-byte aligned."""
         if not self.cuda:
             return {}
-        return {"vec": int(self.vec and all(t.data_ptr() % 16 == 0
-                                            for t in tensors))}
+        return {"vec": int(self.vector > 1 and all(t.data_ptr() % 16 == 0
+                                                   for t in tensors))}
 
 
 def _forward(x, weight, bias, running_mean, running_var, o: Options,
              keep_params: bool):
     """(y, x as the kernels read it, the parameter block or None, call)."""
+    copies = 0
     if x.is_cuda and not o.plain and layout(x) is None:
-        x = _channels_last(x)
+        x, copies = _channels_last(x), 1
     if o.train and x.shape[0] % o.groups:
         raise ValueError(f"bn_groups={o.groups} must divide the batch "
                          f"({x.shape[0]})")
     call = _Call(x, o.groups if o.train else 1, o.plain)
-    ops, lay, g, splits = call.ops, call.lay, call.groups, call.splits
+    ops, lay, g, pl = call.ops, call.lay, call.groups, call.plan(1)
     y = torch.empty_like(x)
+    vec = call.aligned(x, y)
     if not o.train:
         running = (running_mean, running_var, weight, bias)
-        ops.apply(x, lay, 1, splits, None, o.activation, y, running=running,
-                  eps=o.epsilon, **call.aligned(x, y))
+        ops.apply(x, lay, 1, pl, None, o.activation, y, running=running,
+                  eps=o.epsilon, **vec)
         params = None
         if keep_params:
             rstd = torch.rsqrt(running_var + o.epsilon)
@@ -474,24 +592,24 @@ def _forward(x, weight, bias, running_mean, running_var, o: Options,
                                   bias - running_mean * inv,
                                   torch.zeros_like(inv)])[:, None]
         if call.cuda:
-            _count("eval", _stream(x), o.activation)
+            _count("eval", _stream(x), o.activation, vec["vec"], copies)
         return y, x, params, call
     keep, take = o.momentum, 1.0 - o.momentum
-    partials = ops.stats(x, lay, g, splits, **call.aligned(x))
+    partials = ops.stats(x, lay, g, pl, **vec)
     fin = dict(weight=weight, bias=bias, eps=o.epsilon,
                running_mean=running_mean, running_var=running_var, keep=keep,
                take=take)
     mesh = o.mesh
     if mesh is not None:
-        stats = ops.finalize(partials, splits, g, call.count, FIN_SUM, None,
-                             1.0, bessel=0.0, update=False, **fin)
+        stats = ops.finalize(partials, pl.splits, g, call.count, FIN_SUM,
+                             None, 1.0, bessel=0.0, update=False, **fin)
         stats = all_reduce_sum(stats, mesh)
-        params = ops.finalize(None, splits, g, call.count, FIN_NORM, stats,
-                              float(mesh.size),
+        params = ops.finalize(None, pl.splits, g, call.count, FIN_NORM,
+                              stats, float(mesh.size),
                               bessel=_bessel(call.count * mesh.size),
                               update=True, **fin)
     else:
-        params = ops.finalize(partials, splits, g, call.count,
+        params = ops.finalize(partials, pl.splits, g, call.count,
                               FIN_SUM | FIN_NORM, None, 1.0,
                               bessel=_bessel(call.count),
                               update=o.group0_mesh is None, **fin)
@@ -500,35 +618,34 @@ def _forward(x, weight, bias, running_mean, running_var, o: Options,
             broadcast_([first], o.group0_mesh, 0)
             _update_running(running_mean, running_var, first[0], first[1],
                             keep, take, _bessel(call.count))
-    ops.apply(x, lay, g, splits, params, o.activation, y,
-              **call.aligned(x, y))
+    ops.apply(x, lay, g, pl, params, o.activation, y, **vec)
     if call.cuda:
-        _count("rows", _stream(x), o.activation)
+        _count("rows", _stream(x), o.activation, vec["vec"], copies)
     return y, x, params, call
 
 
 def _backward(x, weight, dy, params, call: _Call, o: Options,
               need_dx: bool):
     """(dx or None, dγ, dβ)."""
-    ops, lay, g, splits = call.ops, call.lay, call.groups, call.splits
+    ops, lay, g, pl = call.ops, call.lay, call.groups, call.plan(2)
+    copies = 0
     if call.cuda and dy.stride() != x.stride():
-        dy = torch.empty_like(x).copy_(dy)
-    partials = ops.grad_stats(x, dy, lay, g, splits, params, o.activation,
-                              **call.aligned(x, dy))
+        dy, copies = torch.empty_like(x).copy_(dy), 1
+    dx = torch.empty_like(x) if need_dx else None
+    vec = call.aligned(*(t for t in (x, dy, dx) if t is not None))
+    partials = ops.grad_stats(x, dy, lay, g, pl, params, o.activation, **vec)
     mesh = o.mesh if o.train else None
     ranks = float(mesh.size) if mesh is not None else 1.0
-    coef, dgamma, dbeta = ops.grad_finalize(partials, splits, g, params,
+    coef, dgamma, dbeta = ops.grad_finalize(partials, pl.splits, g, params,
                                             weight, ranks, o.train)
     if mesh is not None:
         coef = all_reduce_sum(coef, mesh)
-    dx = None
     if need_dx:
-        dx = torch.empty_like(x)
-        ops.grad_apply(x, dy, lay, g, splits, params, coef,
-                       float(call.count), o.train, o.activation, dx,
-                       **call.aligned(x, dy, dx))
+        ops.grad_apply(x, dy, lay, g, pl, params, coef, float(call.count),
+                       o.train, o.activation, dx, **vec)
     if call.cuda:
-        _count("rows" if o.train else "eval", _stream(x), o.activation)
+        _count("rows" if o.train else "eval", _stream(x), o.activation,
+               vec["vec"], copies)
     return dx, dgamma, dbeta
 
 

@@ -102,24 +102,101 @@ def test_layout_follows_the_strides():
         assert torch.empty_like(copy).stride() == copy.stride()
 
 
-@pytest.mark.parametrize("shape", sorted({s[0] for s in STEP_SHAPES}))
-@pytest.mark.parametrize("groups", [1, 2])
-def test_plan_cuts_each_group_into_full_blocks(shape, groups):
-    """Each group's rows cut into at most as many blocks as fill the card,
-    each with UNROLL vectors a thread and MIN_ROWS rows at least."""
+# (shape, activation, forward / backward calls a step) of NVAE's BatchNorms
+# at the CelebA 64x64 widths, batch 128, NCHW logical shapes: every one of
+# h100_bench/reference/nvae.py ``batchnorm_calls`` (chip_smoke.py times
+# them all), the largest share of the step's bytes first
+NVAE_SHAPES = [
+    ((128, 768, 32, 32), "swish", 80),    # decoder cells' expansion, 32x32
+    ((128, 1536, 16, 16), "swish", 40),   # decoder cells' expansion, 16x16
+    ((128, 128, 32, 32), "swish", 82),    # cells at 32x32
+    ((128, 128, 32, 32), "none", 81),     # cells' last BatchNorm, no activation
+    ((128, 3072, 8, 8), "swish", 16),     # decoder cells' expansion, 8x8
+    ((128, 1536, 32, 32), "swish", 2),
+    ((128, 384, 64, 64), "swish", 2),
+    ((128, 256, 16, 16), "swish", 42),
+    ((128, 256, 16, 16), "none", 41),
+    ((128, 3072, 16, 16), "swish", 2),
+    ((128, 192, 64, 64), "swish", 2),     # the postprocess normal cell
+    ((128, 64, 64, 64), "swish", 3),      # preprocess
+    ((128, 64, 64, 64), "none", 3),
+    ((128, 512, 8, 8), "swish", 21),
+    ((128, 512, 8, 8), "none", 16),
+    ((128, 128, 64, 64), "none", 1),
+    ((128, 256, 32, 32), "none", 1),
+    ((128, 512, 16, 16), "none", 1),
+]
+# the design's floor of bytes in flight on an SM while a block has that
+# many rows left (csrc/batchnorm.cu, the ring)
+IN_FLIGHT_FLOOR = 64 * 1024
+
+
+def _layout(shape):
     x = torch.empty(shape)
     if x.dim() == 4:
         x = x.contiguous(memory_format=torch.channels_last)
-    lay = bn.layout(x)
+    return bn.layout(x)
+
+
+@pytest.mark.parametrize("shape", sorted({s[0] for s in STEP_SHAPES}
+                                         | {s[0] for s in NVAE_SHAPES}))
+@pytest.mark.parametrize("groups", [1, 2])
+def test_plan_cuts_each_group_into_full_blocks(shape, groups):
+    """The ring's walk, bf16 and float32, forward (x) and backward (x and
+    dy): every consumer thread owns a column of a full channel tile, whole
+    warps but the last; the ring and the lane sums fit in the shared memory
+    a block may take; the bytes in flight on an SM meet the design's floor
+    where the block has that many rows; each group's rows are covered once,
+    by blocks of one group each, one block an SM. One element an access:
+    each group's rows cut into at most as many blocks as fill the card,
+    each with UNROLL rows a thread and MIN_ROWS rows at least."""
+    lay = _layout(shape)
     per = lay.rows // groups
-    for vec in (1, 8):
-        splits = bn.plan(lay, groups, vec)
-        cols = min(lay.channels // vec, bn.THREADS)
-        across = groups * math.ceil(lay.channels / vec / cols)
-        least = max(bn.MIN_ROWS, bn.THREADS // cols * bn.UNROLL)
-        assert 1 <= splits <= per
-        assert splits == 1 or per // splits >= least
-        assert splits == 1 or (splits - 1) * across < bn.TARGET_BLOCKS
+    for vec in (8, 4):
+        for tensors in (1, 2):
+            pl = bn.plan(lay, groups, vec, tensors)
+            consumers = pl.cols * pl.lanes
+            assert pl.tiles * pl.cols * vec == lay.channels, pl
+            assert pl.cols <= bn.MAX_COLS, pl
+            assert bn.MAX_CONSUMERS // 2 < consumers <= bn.MAX_CONSUMERS, pl
+            assert 0 <= pl.threads - 32 - consumers < 32, pl
+            assert pl.rows % pl.lanes == 0, pl
+            assert 1 <= pl.stages <= bn.MAX_STAGES, pl
+            assert pl.smem(tensors, vec) <= bn.SMEM_BYTES, pl
+            assert groups * pl.splits * pl.tiles <= bn.H100_SMS, pl
+            # block q of group g: rows g·per + [q·per/splits, (q+1)·per/splits)
+            bounds = [q * per // pl.splits for q in range(pl.splits + 1)]
+            assert bounds[0] == 0 and bounds[-1] == per
+            assert all(a < b for a, b in zip(bounds, bounds[1:])), pl
+            block_rows = max(b - a for a, b in zip(bounds, bounds[1:]))
+            chunks = -(-block_rows // pl.rows)
+            stage = tensors * pl.rows * pl.cols * 16
+            assert pl.stages == min(chunks, bn.MAX_STAGES) \
+                or (pl.stages - 1) * stage >= IN_FLIGHT_FLOOR, pl
+    pl = bn.plan(lay, groups, 1)
+    cols = min(lay.channels, bn.THREADS)
+    across = groups * math.ceil(lay.channels / cols)
+    least = max(bn.MIN_ROWS, bn.THREADS // cols * bn.UNROLL)
+    assert pl.stages == 0 and pl.threads == bn.THREADS
+    assert 1 <= pl.splits <= per
+    assert pl.splits == 1 or per // pl.splits >= least
+    assert pl.splits == 1 or (pl.splits - 1) * across < bn.TARGET_BLOCKS
+
+
+def test_the_ring_fills_every_sm_at_nvae_sizes():
+    """At NVAE's large calls one block on each of the card's SMs, every
+    block with more stages than its ring holds, and the ring deep enough
+    that more than the floor is in flight."""
+    for shape, _, _ in NVAE_SHAPES:
+        lay = _layout(shape)
+        if lay.rows * lay.channels < 16 * 2 ** 20:
+            continue
+        for tensors in (1, 2):
+            pl = bn.plan(lay, 1, 8, tensors, sms=132)
+            assert pl.splits * pl.tiles == 132, (shape, pl)
+            stage = tensors * pl.rows * pl.cols * 16
+            assert (pl.stages - 1) * stage >= IN_FLIGHT_FLOOR, (shape, pl)
+            assert lay.rows // pl.splits > pl.stages * pl.rows, (shape, pl)
 
 
 # ------------------------------------------------------- counts and errors --
@@ -284,6 +361,45 @@ def test_swish_calls_are_counted_apart():
     assert bn.path_launches - paths == {"rows": 2, "eval": 1, "swish": 2}
 
 
+def test_the_ring_and_the_copies_are_counted_apart():
+    """A call whose passes all took the ring counts once more under
+    ``ring``, and the copies it made first under ``copies``, neither again
+    in ``launches``; eager and through a capture."""
+    before, paths = bn.launches, collections.Counter(bn.path_launches)
+    counts = collections.Counter()
+    with bn.capture_scope(_Stream(), counts):
+        bn._count("rows", _Stream.cuda_stream, "swish", ring=True, copies=1)
+        bn._count("rows", _Stream.cuda_stream, "none", ring=False)
+    assert counts == {"rows": 2, "swish": 1, "ring": 1, "copies": 1}
+    bn._count("eval", 999, "relu", ring=True)
+    bn.replayed(counts)
+    bn.replayed(counts)
+    assert bn.launches == before + 5
+    assert bn.path_launches - paths == {"rows": 4, "eval": 1, "swish": 2,
+                                        "ring": 3, "copies": 2}
+
+
+def test_nvae_shapes_are_the_references():
+    """NVAE_SHAPES is h100_bench/reference/nvae.py's ``batchnorm_calls``
+    (rows, C, activation), call for call."""
+    import importlib
+    import json
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "h100_bench"))
+    try:
+        ref = importlib.import_module("reference.nvae")
+    finally:
+        sys.path.pop(0)
+    with open(os.path.join(root, "h100_bench", "configs",
+                           "nvae_celeba64.json")) as f:
+        calls = collections.Counter(ref.batchnorm_calls(json.load(f)))
+    ours = {(s[0] * s[2] * s[3], s[1], a): n for s, a, n in NVAE_SHAPES}
+    assert ours == dict(calls)
+
+
 # ------------------------------------------------------------- the card --
 
 def _run(fn, x, dy, state, activation, train=True, groups=1):
@@ -370,38 +486,97 @@ def test_kernels_match_plain_at_the_step_shapes(card):
             (shape, activation, err)
 
 
-# (shape, forward calls a step) of NVAE's BatchNorm-Swish at the CelebA
-# 64x64 widths, batch 128 (h100_bench/reference/nvae.py batchnorm_calls)
-NVAE_SWISH_SHAPES = [
-    ((128, 64, 64, 64), 2),      # preprocess, 64x64x64
-    ((128, 128, 32, 32), 80),    # encoder cells at 32x32
-    ((128, 768, 32, 32), 80),    # decoder cells' expansion at 32x32
-    ((128, 3072, 8, 8), 16),     # decoder cells' expansion at 8x8
-    ((128, 192, 64, 64), 2),     # the postprocess normal cell
+# NVAE's shapes on the card: its Swish shapes, and no activation at the
+# scales' cell widths
+NVAE_CARD_SHAPES = [
+    ((128, 64, 64, 64), "swish"),      # preprocess, 64x64x64
+    ((128, 128, 32, 32), "swish"),     # encoder cells at 32x32
+    ((128, 768, 32, 32), "swish"),     # decoder cells' expansion at 32x32
+    ((128, 3072, 8, 8), "swish"),      # decoder cells' expansion at 8x8
+    ((128, 192, 64, 64), "swish"),     # the postprocess normal cell
+    ((128, 128, 32, 32), "none"),      # (131072, 128)
+    ((128, 256, 16, 16), "none"),      # (32768, 256)
+    ((128, 512, 8, 8), "none"),        # (8192, 512)
 ]
 
 
 @pytest.mark.cuda
 def test_swish_kernels_match_plain_at_nvae_shapes(card):
-    """BatchNorm-Swish at NVAE's shapes, bf16 channels-last, train mode:
-    the kernels against the plain passes, within the step shapes' bounds,
-    two launches bit-identical, each call counted once more as Swish."""
+    """NVAE's BatchNorm-Swish, and its BatchNorms without an activation,
+    bf16 channels-last, train mode: the kernels against the plain passes,
+    within the step shapes' bounds, two launches bit-identical, each call
+    through the ring and counted once more as Swish where it is one."""
     dev = torch.device("cuda")
-    for i, (shape, _) in enumerate(NVAE_SWISH_SHAPES):
+    for i, (shape, act) in enumerate(NVAE_CARD_SHAPES):
         x = _input(shape, dev, 70 + i, torch.bfloat16, True)
         dy = _input(shape, dev, 90 + i, torch.bfloat16, True)
         state = _params(shape[1], dev, 30 + i)
-        swish = bn.path_launches["swish"]
-        got = _run(bn.batch_norm, x, dy, state, "swish")
-        assert bn.path_launches["swish"] == swish + 2
-        again = _run(bn.batch_norm, x, dy, state, "swish")
-        want = _run(bn.batch_norm_plain, x, dy, state, "swish")
+        before = collections.Counter(bn.path_launches)
+        got = _run(bn.batch_norm, x, dy, state, act)
+        counts = bn.path_launches - before
+        assert counts == {"rows": 2, "ring": 2, **({"swish": 2} if act
+                                                    == "swish" else {})}, \
+            (shape, act, counts)
+        again = _run(bn.batch_norm, x, dy, state, act)
+        want = _run(bn.batch_norm_plain, x, dy, state, act)
         torch.cuda.synchronize()
         for key in got:
             assert torch.equal(got[key], again[key]), (shape, key)
         err = compare(got, want, x, state)
         assert max(v for k, v in err.items() if k != "kink") <= 1, \
-            (shape, err)
+            (shape, act, err)
+
+
+class _OneRank:
+    """A process group of one: the all-reduce leaves its tensors as they
+    are, as NCCL's does with one rank."""
+
+    def allreduce(self, tensors):
+        return self
+
+    def wait(self):
+        return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["groups2", "mesh1"])
+def test_kernels_match_plain_at_nvae_width_grouped_and_meshed(card, case):
+    """NVAE's widest Swish shape with the batch in two groups of their own
+    statistics, and under a mesh of one rank (the forward's finalize in two
+    launches around the all-reduce, the backward's coefficients
+    all-reduced): the kernels against the plain passes on the same path,
+    two launches bit-identical, every call through the ring."""
+    import types
+
+    dev = torch.device("cuda")
+    shape = (128, 768, 32, 32)
+    x = _input(shape, dev, 17, torch.bfloat16, True)
+    dy = _input(shape, dev, 18, torch.bfloat16, True)
+    state = _params(shape[1], dev, 19)
+    groups = 2 if case == "groups2" else 1
+    mesh = types.SimpleNamespace(size=1, group=_OneRank()) \
+        if case == "mesh1" else None
+
+    def run(fn):
+        w, b, rm, rv = (t.clone() for t in state)
+        w.requires_grad_(), b.requires_grad_()
+        xt = x.detach().clone().requires_grad_()
+        y = fn(xt, w, b, rm, rv, train=True, groups=groups,
+               activation="swish", mesh=mesh)
+        y.backward(dy)
+        return {"y": y.detach(), "dx": xt.grad, "dγ": w.grad, "dβ": b.grad,
+                "mean": rm, "var": rv}
+
+    before = collections.Counter(bn.path_launches)
+    got = run(bn.batch_norm)
+    assert bn.path_launches - before == {"rows": 2, "ring": 2, "swish": 2}
+    again = run(bn.batch_norm)
+    want = run(bn.batch_norm_plain)
+    torch.cuda.synchronize()
+    for key in got:
+        assert torch.equal(got[key], again[key]), (case, key)
+    err = compare(got, want, x, state, True, groups)
+    assert max(v for k, v in err.items() if k != "kink") <= 1, (case, err)
 
 
 @pytest.mark.cuda
