@@ -30,7 +30,13 @@ Phases, each fatal on failure:
    against their plain passes (tests/test_torch_port_batchnorm.py's
    tolerances) and two launches bit-identical; ``[check] fused_linear``
    also at NVAE's squeeze-excitation shapes (the reference's
-   ``fused_linear_launches``, ReLU after the first layer);
+   ``fused_linear_launches``, ReLU after the first layer); the depthwise
+   convolution (``[check] depthwise_conv``) at NVAE's seven shapes (the
+   reference's layer table, batch 128, channels-last): y, dx and dw of the
+   float32 kernels against the plain version in float32, of the bf16
+   kernels against the plain version in bf16 and against ``F.conv2d``
+   (cuDNN), each within ``TOL_DW``, and two launches bit-identical, dw
+   included;
 3. time each kernel at its main-path shapes beside its bound, its plain
    version and, where one exists, one PyTorch library call computing the
    same function (for ``fused_linear`` two: ``torch.addmm`` on bf16 copies
@@ -42,7 +48,12 @@ Phases, each fatal on failure:
    the activation in place and the ATen chain they replace, and summed
    over one step's 42 forward and 38 backward calls; the kernels alone at
    each of NVAE's 18 BatchNorm shapes (``[time] batchnorm nvae``), summed
-   over its step's 436 calls each way;
+   over its step's 436 calls each way; the depthwise kernels at NVAE's
+   seven shapes (``[time] depthwise_conv nvae``), forward and backward,
+   device-only, against the bytes the function has to move, ``F.conv2d``
+   (``library``) and the plain version, the backward's fused pass and
+   finalize apart from the profiler, and summed over the step's 72 calls
+   each way (``per nvae step``) beside the 17.4 ms bound;
    then train/scan.py's CUDA graphs (``[scan]``): for each of the six step
    kinds at full default width (the β-VAE-GAN in both freeze modes, the
    VAE, the DCGAN, the birds and MNIST families), from one copied state,
@@ -66,8 +77,11 @@ Phases, each fatal on failure:
    widths and batch 128 (``--model nvae``, h100_bench/configs/
    nvae_celeba64.json) 3 steps without FID, its launches a step those of
    the reference's tables: a BatchNorm call each way for each of its
-   BatchNorms, the Swish ones counted apart, and two ``fused_linear``
-   calls for each cell's squeeze-excitation.
+   BatchNorms, the Swish ones counted apart, two ``fused_linear`` calls
+   for each cell's squeeze-excitation, and a depthwise call each way for
+   each of its 72 depthwise 5×5 (``NVAE_DW_LAUNCHES``; every other run
+   makes none); its peak reserved memory no more than the 79.83 GB it
+   reserved through cuDNN.
    Every loss and FID finite, and each kernel's launch count, set to 0 just
    before each run and read just after, equal to what the run's code path
    launches (fused_linear's also by path; the BatchNorms' a step and a
@@ -292,6 +306,23 @@ BN_SWEEP_LAUNCHES = BN_FID_LAUNCHES + 9 + 4
 # NVAE_BN_COPIES a step
 BN_COPIES = {"last": 0, "total": 0}
 NVAE_BN_COPIES = 0
+# the depthwise convolutions' calls (ops/depthwise_conv.py path_launches) of
+# the last counted run, and of every run: NVAE's step makes
+# NVAE_DW_LAUNCHES a step, one forward and one backward each of its 72
+# depthwise 5×5 (the reference's layer table); no other run makes any.
+# ... and NVAE's peak reserved memory when cuDNN ran those convolutions
+DW_LAUNCHES = {"last": {}, "total": 0}
+NVAE_DW_LAUNCHES = {"fwd": 72, "bwd": 72}
+NVAE_CUDNN_RESERVED_GB = 79.83
+# [check] depthwise_conv: the largest error over the largest |value| of each
+# output. Kernels against the plain version, both float32 sums of the same
+# products in another order: float32 1e-5 (y, dx) and 1e-4 (dw, sums of
+# N·H·W products that cancel); bf16 one bf16 step, both rounding float32
+# sums once. Against F.conv2d (cuDNN) in bf16: one bf16 step for y and dx,
+# 1e-2 for dw (cuDNN's own weight-gradient rounding)
+TOL_DW = {"float32": {"y": 1e-5, "dx": 1e-5, "dw": 1e-4},
+          "bfloat16": {"y": 2.0 ** -7, "dx": 2.0 ** -7, "dw": 2.0 ** -7},
+          "library": {"y": 2.0 ** -7, "dx": 2.0 ** -7, "dw": 1e-2}}
 # ... and on the birds FID path (train/loop.py run_family): 1000 decoded
 # 128×128 samples, twice per FID epoch as well
 BIRDS_IMG = 128
@@ -648,7 +679,8 @@ def ptxas_summary(log: str) -> str:
              "dmt_bn_reduce_grad_finalize", "dmt_bn_elementwise_apply_rows",
              "dmt_bn_elementwise_grad_rows", "dmt_bn_reduce_ring",
              "dmt_bn_reduce_grad_ring", "dmt_bn_elementwise_apply_ring",
-             "dmt_bn_elementwise_grad_ring")
+             "dmt_bn_elementwise_grad_ring", "dmt_dwconv_fwd",
+             "dmt_dwconv_bwd_finalize", "dmt_dwconv_bwd")
     seen, name, spill = {}, None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -1101,6 +1133,187 @@ def time_batchnorm_nvae(bno, torch, card: str) -> dict:
     return {"shapes": rows, "per_step": step}
 
 
+def nvae_depthwise_calls() -> list:
+    """((B, C, H, W), k, calls a step) of NVAE's depthwise convolutions, the
+    reference's layer table by shape."""
+    ref, c = nvae_reference()
+    b, calls = c["batch_size_train"], {}
+    for l in ref.layers(c):
+        if l["kind"] == "conv" and l["groups"] > 1:
+            key = ((b, l["groups"], l["hw_in"], l["hw_in"]), l["k"])
+            calls[key] = calls.get(key, 0) + 1
+    return [k + (n,) for k, n in sorted(calls.items())]
+
+
+def _dw_inputs(shape, k, seed, dtype, torch):
+    """x, w, dy on the card, x and dy channels-last."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, dy = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+             .contiguous(memory_format=torch.channels_last) for _ in (0, 1))
+    w = (0.2 * torch.randn((shape[1], 1, k, k), generator=g,
+                           device="cuda")).to(dtype)
+    return x, w, dy
+
+
+def _dw_run(fn, x, w, dy, torch) -> dict:
+    xg = x.detach().clone().requires_grad_()
+    wg = w.detach().clone().requires_grad_()
+    y = fn(xg, wg)
+    dx, dw = torch.autograd.grad(y, (xg, wg), dy)
+    return {"y": y.detach(), "dx": dx, "dw": dw}
+
+
+def _dw_library(x, w):
+    import torch.nn.functional as F
+
+    return F.conv2d(x, w, None, 1, (w.shape[-1] - 1) // 2, 1, x.shape[1])
+
+
+def check_depthwise(dwc, torch) -> dict:
+    """The depthwise kernels at each of NVAE's seven shapes (batch 128):
+    float32 kernels against the plain version in float32, bf16 kernels
+    against the plain version in bf16 and against ``F.conv2d`` (cuDNN) in
+    bf16, y, dx and dw each within ``TOL_DW``; two launches bit-identical
+    (dw included). Returns each comparison's largest reading over its
+    tolerance."""
+    worst: dict = {}
+    for i, (shape, k, n) in enumerate(nvae_depthwise_calls()):
+        parts = []
+        for dtype, ref, key in (
+                (torch.float32, dwc.depthwise_conv_plain, "float32"),
+                (torch.bfloat16, dwc.depthwise_conv_plain, "bfloat16"),
+                (torch.bfloat16, _dw_library, "library")):
+            x, w, dy = _dw_inputs(shape, k, 300 + i, dtype, torch)
+            got = _dw_run(dwc.depthwise_conv, x, w, dy, torch)
+            want = _dw_run(ref, x, w, dy, torch)
+            if key != "library":
+                again = _dw_run(dwc.depthwise_conv, x, w, dy, torch)
+                torch.cuda.synchronize()
+                differ = [o for o in got if not torch.equal(got[o],
+                                                            again[o])]
+                if differ:
+                    fail(f"[check] depthwise_conv {shape} {key}: two launches "
+                         f"differ in {differ}")
+            torch.cuda.synchronize()
+            if not got["y"].is_contiguous(memory_format=torch.channels_last) \
+                    or not got["dx"].is_contiguous(
+                        memory_format=torch.channels_last):
+                fail(f"[check] depthwise_conv {shape}: y or dx not "
+                     f"channels-last")
+            over = {}
+            for o in ("y", "dx", "dw"):
+                d, rel = rel_err(got[o], want[o])
+                over[o] = rel / TOL_DW[key][o]
+                worst[f"{key} {o}"] = max(worst.get(f"{key} {o}", 0),
+                                          over[o])
+            parts.append(f"{key} " + ", ".join(f"{o} {v:.3f}"
+                                               for o, v in over.items()))
+            if max(over.values()) > 1:
+                fail(f"[check] depthwise_conv {shape} {key}: error over "
+                     f"tolerance {over}")
+            del x, w, dy, got, want
+        say(f"[check] depthwise_conv {shape} k {k} x{n}: error over "
+            f"tolerance (largest |Δ| ÷ largest |value| ÷ TOL_DW) "
+            + "; ".join(parts) + "; two launches bit-identical (float32, "
+            "bf16; dw included)")
+    return worst
+
+
+def time_depthwise_nvae(dwc, torch, card: str) -> dict:
+    """At each of NVAE's depthwise shapes (batch 128, bf16 channels-last):
+    the kernels' device-only time a call forward and backward (its finalize
+    included), ``F.conv2d`` (cuDNN, ``library``) and the plain version, each
+    way, against the bytes the function has to move (4 B an element
+    forward, 6 B backward) at 3.35 TB/s; the backward's split between its
+    fused pass and its finalize from the profiler; then all summed over one
+    step's calls."""
+    rows = []
+    for i, (shape, k, n) in enumerate(nvae_depthwise_calls()):
+        x, w, dy = _dw_inputs(shape, k, 400 + i, torch.bfloat16, torch)
+        xg = x.detach().clone().requires_grad_()
+        wg = w.detach().clone().requires_grad_()
+        label = f"depthwise_conv nvae {shape}"
+        r = {"shape": list(shape), "k": k, "calls": n}
+        for name, fn in (("kernel", dwc.depthwise_conv),
+                         ("library", _dw_library),
+                         ("plain", dwc.depthwise_conv_plain)):
+            def fwd():
+                with torch.no_grad():
+                    return fn(x, w)
+
+            def both():
+                y = fn(xg, wg)
+                torch.autograd.grad(y, (xg, wg), dy)
+
+            iters = 20 if name != "plain" else 3
+            f_ms = time_device_ms(fwd, iters, label=f"{label} {name} fwd")
+            b_ms = time_device_ms(both, iters,
+                                  label=f"{label} {name} both") - f_ms
+            r[f"{name}_forward_ms"], r[f"{name}_backward_ms"] = f_ms, b_ms
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                acc_events=True) as prof:
+            for _ in range(5):
+                y = dwc.depthwise_conv(xg, wg)
+                torch.autograd.grad(y, (xg, wg), dy)
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.key_averages():
+            for part in ("dmt_dwconv_fwd", "dmt_dwconv_bwd_finalize",
+                         "dmt_dwconv_bwd"):
+                if part in e.key:
+                    t = getattr(e, "device_time_total",
+                                getattr(e, "cuda_time_total", 0))
+                    by[part] = by.get(part, 0.0) + t / 5e3
+                    break
+        r["profiled_ms"] = by
+        elems = x.numel()
+        r["forward_bound_ms"] = 4 * elems / HBM_BYTES_PER_S * 1e3
+        r["backward_bound_ms"] = 6 * elems / HBM_BYTES_PER_S * 1e3
+        rows.append(r)
+        say(f"[time] depthwise_conv nvae {tuple(shape)} k {k} x{n}: forward "
+            f"device {r['kernel_forward_ms']:.4f} ms (bound "
+            f"{r['forward_bound_ms']:.4f}, "
+            f"{r['forward_bound_ms'] / r['kernel_forward_ms'] * 100:.1f} %; "
+            f"library {r['library_forward_ms']:.4f}, plain "
+            f"{r['plain_forward_ms']:.4f}), backward device "
+            f"{r['kernel_backward_ms']:.4f} ms (bound "
+            f"{r['backward_bound_ms']:.4f}, "
+            f"{r['backward_bound_ms'] / r['kernel_backward_ms'] * 100:.1f} %; "
+            f"library {r['library_backward_ms']:.4f}, plain "
+            f"{r['plain_backward_ms']:.4f}); profiled ms a call "
+            + ", ".join(f"{kk} {v:.4f}" for kk, v in by.items())
+            + f"; card {card}")
+        del x, w, dy, xg, wg
+
+    def total(key):
+        return sum(r[key] * r["calls"] for r in rows)
+
+    step = {key: total(key) for key in rows[0]
+            if key.endswith("_ms") and key != "profiled_ms"}
+    step["profiled_ms"] = {kk: sum(r["profiled_ms"].get(kk, 0) * r["calls"]
+                                   for r in rows)
+                           for kk in rows[0]["profiled_ms"]}
+    for name in ("kernel", "library", "plain"):
+        step[f"{name}_ms"] = step[f"{name}_forward_ms"] + \
+            step[f"{name}_backward_ms"]
+    step["bound_ms"] = step["forward_bound_ms"] + step["backward_bound_ms"]
+    calls = sum(r["calls"] for r in rows)
+    say(f"[time] depthwise_conv per nvae step ({calls} forward and {calls} "
+        f"backward calls): kernel {step['kernel_ms']:.3f} ms (forward "
+        f"{step['kernel_forward_ms']:.3f}, backward "
+        f"{step['kernel_backward_ms']:.3f}; profiled "
+        + ", ".join(f"{kk} {v:.3f}" for kk, v in step["profiled_ms"].items())
+        + f"), bound {step['bound_ms']:.3f} ms "
+        f"({step['bound_ms'] / step['kernel_ms'] * 100:.1f} %; forward "
+        f"{step['forward_bound_ms']:.3f}, backward "
+        f"{step['backward_bound_ms']:.3f}), library_ms "
+        f"{step['library_ms']:.3f} (forward {step['library_forward_ms']:.3f}, "
+        f"backward {step['library_backward_ms']:.3f}), plain "
+        f"{step['plain_ms']:.3f}; card {card}")
+    return {"shapes": rows, "per_step": step}
+
+
 def fid_setup(torch) -> str:
     """Reference statistics of STATS_IMAGES synthetic images through the
     port's compute_dataset_statistics; the same images against them give
@@ -1174,10 +1387,12 @@ def count_launches(fl, pin, run) -> tuple:
     import torch
 
     from disentangle_mlp_tpu_torch.ops import batchnorm as bno
+    from disentangle_mlp_tpu_torch.ops import depthwise_conv as dwc
 
-    fl.launches = pin.launches = bno.launches = 0
+    fl.launches = pin.launches = bno.launches = dwc.launches = 0
     fl.path_launches.clear()
     bno.path_launches.clear()
+    dwc.path_launches.clear()
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
@@ -1195,6 +1410,11 @@ def count_launches(fl, pin, run) -> tuple:
              f"of them through the ring: {dict(bno.path_launches)}")
     BN_COPIES["last"] = bno.path_launches["copies"]
     BN_COPIES["total"] += BN_COPIES["last"]
+    if dwc.launches != sum(dwc.path_launches[p] for p in dwc.PATHS):
+        fail(f"depthwise_conv: {dwc.launches} launches, by path "
+             f"{dict(dwc.path_launches)}")
+    DW_LAUNCHES["last"] = dict(dwc.path_launches)
+    DW_LAUNCHES["total"] += dwc.launches
     return out, launches, dict(fl.path_launches), wall
 
 
@@ -1215,6 +1435,9 @@ def check_launches(fl, torch, label, launches, by_path, shapes, fids,
             "batchnorm_swish": 0}
     if launches != want:
         fail(f"{label}: kernel launches {launches}, expected {want}")
+    if DW_LAUNCHES["last"]:
+        fail(f"{label}: depthwise_conv launches {DW_LAUNCHES['last']}, "
+             f"expected none")
     want_paths = planned_paths(fl, torch, shapes)
     if by_path != want_paths:
         fail(f"{label}: fused_linear launches by path {by_path}, expected "
@@ -1360,6 +1583,10 @@ def train_nvae(fl, pin, card: str) -> tuple:
     want = {k: NVAE_STEPS * v for k, v in nvae_step_launches().items()}
     if launches != want:
         fail(f"train nvae: kernel launches {launches}, expected {want}")
+    want_dw = {k: NVAE_STEPS * v for k, v in NVAE_DW_LAUNCHES.items()}
+    if DW_LAUNCHES["last"] != want_dw:
+        fail(f"train nvae: depthwise_conv launches {DW_LAUNCHES['last']}, "
+             f"expected {want_dw}")
     copies = BN_COPIES["last"]
     if copies != NVAE_STEPS * NVAE_BN_COPIES:
         fail(f"train nvae: {copies} copies before the BatchNorm passes, "
@@ -1370,16 +1597,22 @@ def train_nvae(fl, pin, card: str) -> tuple:
         fail(f"train nvae: fused_linear launches by path {by_path}, "
              f"expected {want_paths} from plan")
     rate = out["images_per_sec"]
+    reserved = torch.cuda.max_memory_reserved() / 1e9
     say(f"[train] nvae: {NVAE_STEPS} steps at batch {batch}, "
         f"{c['dtype']}, published widths; {rate:.1f} img/s, "
         f"{batch / rate * 1e3:.2f} ms/step (steps 2..{NVAE_STEPS}); wall "
         f"{wall:.1f} s incl. init; no FID; {held / 1e9:.2f} GB held before "
-        f"it, peak {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
-        f"reserved; launches {json.dumps(launches)} ({NVAE_STEPS} × the "
-        f"reference's step, every BatchNorm call through the ring; "
-        f"{copies} copies before them), fused_linear by path "
+        f"it, peak {reserved:.2f} GB reserved (cuDNN's depthwise "
+        f"convolutions: {NVAE_CUDNN_RESERVED_GB:.2f}); launches "
+        f"{json.dumps(launches)} ({NVAE_STEPS} × the reference's step, "
+        f"every BatchNorm call through the ring; {copies} copies before "
+        f"them), depthwise_conv {json.dumps(DW_LAUNCHES['last'])} "
+        f"({NVAE_STEPS} × {NVAE_DW_LAUNCHES}), fused_linear by path "
         f"{json.dumps(by_path)}; "
         f"last step {json.dumps(out['step_metrics'])}; card {card}")
+    if reserved > NVAE_CUDNN_RESERVED_GB + 0.005:
+        fail(f"train nvae: {reserved:.2f} GB reserved at its peak, more than "
+             f"the {NVAE_CUDNN_RESERVED_GB:.2f} GB through cuDNN")
     return launches, by_path
 
 
@@ -3285,6 +3518,7 @@ def main() -> None:
     try:
         from disentangle_mlp_tpu_torch.ops import _build
         from disentangle_mlp_tpu_torch.ops import batchnorm as bno
+        from disentangle_mlp_tpu_torch.ops import depthwise_conv as dwc
         from disentangle_mlp_tpu_torch.ops import fused_linear as fl
         from disentangle_mlp_tpu_torch.ops import image_ops as pin
     except ImportError as e:
@@ -3304,7 +3538,8 @@ def main() -> None:
     # 2. build and check
     t0 = time.perf_counter()
     libs = _build.build_all(["fused_linear", "per_image_normalize",
-                             "nvjpeg_decode", "batchnorm"])
+                             "nvjpeg_decode", "batchnorm",
+                             "depthwise_conv"])
     say(f"[build] {', '.join(str(p.name) for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc a source, in parallel; "
         f"flags {' '.join(_build.NVCC_FLAGS)})")
@@ -3313,12 +3548,14 @@ def main() -> None:
     worst = check_fused_linear(fl, torch)
     norm_err = check_per_image_normalize(pin, torch)
     bn_err = check_batchnorm(bno, torch)
+    dw_err = check_depthwise(dwc, torch)
 
     # 3. time
     rows = time_fused_linear(fl, torch, card)
     norm_rows = time_per_image_normalize(pin, torch, card)
     bn_times = time_batchnorm(bno, torch, card)
     bn_nvae_times = time_batchnorm_nvae(bno, torch, card)
+    dw_times = time_depthwise_nvae(dwc, torch, card)
 
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     try:
@@ -3505,6 +3742,24 @@ def main() -> None:
         "nvae_step_two_pass_bound_ms":
             bn_nvae_times["per_step"]["two_pass_bound_ms"],
         "nvae_shapes": bn_nvae_times["shapes"],
+    }, {
+        "name": "depthwise_conv", "route": "cuda",
+        "source": "disentangle_mlp_tpu_torch/csrc/depthwise_conv.cu",
+        "replaces": "no TPU kernel: cuDNN's depthwise 5×5 (F.conv2d with "
+                    "groups = C) in models/layers.py's Conv",
+        "launches": DW_LAUNCHES["total"],
+        "error_over_tolerance": dw_err,
+        "ms": dw_times["per_step"]["kernel_ms"],
+        "device_ms": dw_times["per_step"]["kernel_ms"],
+        "bound_ms": dw_times["per_step"]["bound_ms"], "bound_by": "bytes",
+        "plain_ms": dw_times["per_step"]["plain_ms"],
+        "library_ms": dw_times["per_step"]["library_ms"],
+        "library_note": "F.conv2d with groups = C (cuDNN), forward and "
+                        "backward",
+        "times_are": "device-only sums over the depthwise calls of one NVAE "
+                     "step (72 forward, 72 backward)",
+        "per_step": dw_times["per_step"],
+        "shapes": dw_times["shapes"],
     }]
     say(json.dumps({"kernels": kernels}))
     say(card)

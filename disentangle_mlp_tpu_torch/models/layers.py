@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.batchnorm import batch_norm
+from ..ops.depthwise_conv import depthwise_conv, is_depthwise
 from ..ops.fused_linear import LEAKY_SLOPE, fused_linear
 from ..parallel.mesh import all_reduce_sum
 from ..utils import runtime
@@ -106,7 +107,11 @@ class Conv(nn.Module):
     dtype; ``log_weight_norm`` (out, 1, 1, 1) starts at log(‖v‖ + 1e-2).
     ``weight_normalized`` holds the float32 kernel of the latest forward
     of a weight-normalised convolution (the spectral regularisation reads
-    it, as NVAE's does)."""
+    it, as NVAE's does).
+
+    A depthwise convolution (:attr:`depthwise`: NVAE's 5×5) runs through
+    ``ops/depthwise_conv.py``'s kernels; every other through
+    ``F.conv2d``."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 5,
                  stride: int = 1, padding: int = 2,
@@ -131,6 +136,12 @@ class Conv(nn.Module):
                 torch.log(norm + 1e-2).view(-1, 1, 1, 1))
         self.weight_normalized: Optional[torch.Tensor] = None
 
+    @property
+    def depthwise(self) -> bool:
+        shape = self.weight.shape
+        return is_depthwise(shape[1] * self.groups, shape[0], self.groups,
+                            shape, self.stride, self.padding)
+
     def normalized(self) -> torch.Tensor:
         """The float32 kernel the convolution uses."""
         if self.log_weight_norm is None:
@@ -145,8 +156,11 @@ class Conv(nn.Module):
         w = self.normalized()
         if self.log_weight_norm is not None:
             self.weight_normalized = w
-        y = F.conv2d(x.to(dt), w.to(dt), None, self.stride, self.padding,
-                     1, self.groups)
+        if self.depthwise:
+            y = depthwise_conv(x.to(dt), w.to(dt))
+        else:
+            y = F.conv2d(x.to(dt), w.to(dt), None, self.stride, self.padding,
+                         1, self.groups)
         return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 

@@ -35,8 +35,9 @@ On the CPU it runs the K steps eagerly, one after another.
   at that moment; ``fused_linear``'s TMA descriptors hold the graph's
   addresses. The graph owns its ``fused_linear`` split-K scratch
   (ops/fused_linear.py ``GraphScope``), and each replay adds the kernel
-  launches its capture recorded to the kernels' counts (``fused_linear``'s
-  and the BatchNorms', ops/batchnorm.py ``capture_scope``).
+  launches its capture recorded to the kernels' counts (``fused_linear``'s,
+  the BatchNorms' and the depthwise convolutions', ``capture_scope`` in
+  ops/batchnorm.py and ops/depthwise_conv.py).
 - **Meshes.** An experiment on a NCCL mesh (parallel/mesh.py) is captured
   with its collectives: BatchNorm's all-reduces forward and backward, the
   gradients' and the metrics'. The process group exists and its
@@ -64,6 +65,7 @@ import torch
 from torch import nn
 
 from ..ops import batchnorm as bn
+from ..ops import depthwise_conv as dwc
 from ..ops import fused_linear as fl
 from ..utils import runtime
 from .common import Adam, Adamax, label_tensor
@@ -189,9 +191,11 @@ class MultiStep:
         graph = torch.cuda.CUDAGraph()
         marks: List[str] = []
         bn_launches: collections.Counter = collections.Counter()
+        dw_launches: collections.Counter = collections.Counter()
         with runtime.span("dmt.graph.capture"), \
                 runtime.mark_table(stream, marks), \
                 bn.capture_scope(stream, bn_launches), \
+                dwc.capture_scope(stream, dw_launches), \
                 fl.graph_scope(scope, capturing=True), torch.cuda.graph(
                     graph, stream=stream, capture_error_mode="thread_local"):
             outs = []
@@ -204,7 +208,7 @@ class MultiStep:
             self._out = torch.stack([torch.stack(
                 [o[key].float() for key in self._keys]) for o in outs])
         self.graph, self._scope, self.marks = graph, scope, marks
-        self._bn_launches = bn_launches
+        self._bn_launches, self._dw_launches = bn_launches, dw_launches
         self.captures += 1
         self._ptrs = [t.data_ptr() for t in self._state]
         return out
@@ -230,6 +234,7 @@ class MultiStep:
         self.replays += 1
         fl.replayed(self._scope)
         bn.replayed(self._bn_launches)
+        dwc.replayed(self._dw_launches)
         out = self._out.clone()
         return {key: out[:, j] for j, key in enumerate(self._keys)}
 
